@@ -1,0 +1,10 @@
+from repro_torch.evolution.nsga2 import NSGA2Config  # noqa
+from repro_torch.evolution import ga  # noqa
+from repro_torch.evolution.ga import GAState  # noqa
+from repro_torch.evolution.island import (IslandState,  # noqa
+                                          init_island_state, make_epoch,
+                                          make_evolve, make_merge,
+                                          make_reseed, run_islands,
+                                          state_from_arrays)
+from repro_torch.evolution.archive import (Archive, init_archive,  # noqa
+                                           merge, pareto_front)

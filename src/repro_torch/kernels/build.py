@@ -1,0 +1,119 @@
+"""Build the CUDA sources under ``repro_torch/csrc`` into shared libraries
+and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers) and
+compiles on its own with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas=-v -o <name>-<hash>.so csrc/<name>.cu
+
+into ``repro_torch/_build/`` (listed in ``.gitignore``). The file name
+carries a hash of the source and the flags, so an edited source rebuilds and
+an unchanged one is loaded as it is. ``build()`` starts one ``nvcc`` per
+source, all at once, and waits for them; ``load()`` builds on first use.
+ptxas's register and shared-memory report lands beside each library as
+``<name>-<hash>.log``.
+
+Every C entry returns ``cudaGetLastError()`` after its launch; the Python
+wrappers raise when it is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("diffusion", "dominance")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: $CUDA_HOME/bin/nvcc, the toolkit's
+    default install, or ``nvcc`` on PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA "
+                           "toolkit on PATH to build the port's kernels")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every source in ``names`` (default: all) that is not built
+    yet, one nvcc process per source, all started together. Returns the
+    wall seconds each build took (0.0 for a library already built).
+    Raises with the compiler's output if any build fails."""
+    names = tuple(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    procs = {}
+    secs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            secs[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        log = open(out.with_suffix(".log"), "w")
+        procs[name] = (subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
+    failed = []
+    for name, (proc, tmp, out, log) in procs.items():
+        rc = proc.wait()
+        log.close()
+        secs[name] = time.monotonic() - t0
+        if rc != 0:
+            failed.append(f"{name}: nvcc exit {rc}\n"
+                          + out.with_suffix(".log").read_text())
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return secs
+
+
+def build_log(name: str) -> str:
+    """ptxas/nvcc output of the last build of ``name`` ('' if none)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    if name not in _LOADED:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        _LOADED[name] = ctypes.CDLL(str(path))
+    return _LOADED[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err:
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -9,10 +9,12 @@ and prints one JSON object per line.
 Phases (any failure exits non-zero):
   1. build    nvcc builds every csrc/*.cu, one process per source at once.
   2. kernels  each kernel against its plain version at the main path's
-              shapes (diffusion bitwise, dominance equal). "ms" is the
-              kernel's time on the card (torch.profiler's CUDA kernel
-              records), beside its plain version's and, where one PyTorch
-              call computes the same thing, that call's; "call_ms" is the
+              shapes, dominance also with the +BIG rows that ranking
+              writes for empty slots (diffusion bitwise, dominance
+              equal). "ms" is the kernel's time on the card
+              (torch.profiler's CUDA kernel records), beside its plain
+              version's and, where one PyTorch call computes the same
+              thing, that call's; "call_ms" is the
               per-call time of back-to-back calls between CUDA events,
               which the host's launch cost sets for small kernels.
   3. parity   simulate_batch on the card against the CPU plain path, same
@@ -127,6 +129,7 @@ def main() -> int:
 
     from repro_torch.ants import model
     from repro_torch.configs.ants_netlogo import CONFIG, REDUCED
+    from repro_torch.evolution import nsga2
     from repro_torch.kernels import build, diffusion, dominance, ops, ref
     from repro_torch.launch import explore
 
@@ -193,22 +196,33 @@ def main() -> int:
         return torch.randint(0, 1001, (n, 3), generator=gen,
                              device=dev).to(torch.float32)
 
-    for n, grouped in ((256, True), (128, True), (320, False),
-                       (2048, False), (8192, False)):
+    # (rows, grouped, rows set to +BIG, those rows first): the GA pool ranks
+    # 8 islands x 32 grouped; pareto_front ranks the 256-row archive with
+    # its empty rows at +BIG; the first merge ranks the 256 empty archive
+    # rows ahead of 64 new ones
+    for n, grouped, n_big, big_first in (
+            (256, True, 0, False), (128, True, 0, False),
+            (256, False, 128, False), (320, False, 0, False),
+            (320, False, 256, True), (2048, False, 0, False),
+            (8192, False, 0, False)):
         rows = objectives(n)
+        at = (torch.arange(n_big, device=dev) if big_first else
+              torch.randperm(n, generator=gen, device=dev)[:n_big])
+        rows[at] = nsga2.BIG
         groups = (torch.arange(8, device=dev, dtype=torch.int32)
                   .repeat_interleave(n // 8)) if grouped else None
         counts, bitmap = dominance.dominance_pass(rows, groups=groups)
         pc, pb = ref.dominance_pass_ref(rows, groups=groups)
         torch.cuda.synchronize()
         require(torch.equal(counts, pc) and torch.equal(bitmap, pb),
-                f"dominance_pass equal at n={n} grouped={grouped}")
+                f"dominance_pass equal at n={n} grouped={grouped} "
+                f"big={n_big}")
         words = -(-n // 32)
         b_ms, b_by = bound_ms(
             2 * n * 3 * 4 + (2 * n * 4 if grouped else 0) + n * 4
             + n * words * 4, n * n * 2 * 3)
         r = {"kernel": "dominance_pass", "shape": [n, 3], "grouped": grouped,
-             "equal": True, "max_abs_err": 0.0,
+             "big_rows": n_big, "equal": True, "max_abs_err": 0.0,
              "ms": device_ms(torch, lambda: dominance.dominance_pass(
                  rows, groups=groups)),
              "call_ms": call_ms(torch, lambda: dominance.dominance_pass(
@@ -216,7 +230,7 @@ def main() -> int:
              "plain_ms": device_ms(torch, lambda: ref.dominance_pass_ref(
                  rows, groups=groups), reps=5),
              "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-        results[("dominance_pass", n)] = r
+        results[("dominance_pass", n, grouped, n_big)] = r
         emit({"phase": "kernels", **r})
 
     rows = objectives(2048)
@@ -319,8 +333,9 @@ def main() -> int:
           "profile_20_ticks_20480_lanes": chunk_busy})
 
     # -- 6. the kernels line, the card, the contract line --------------------
-    main_shapes = {"diffuse_evaporate": 640, "dominance_pass": 256,
-                   "dominated_counts": 2048}
+    main_shapes = {"diffuse_evaporate": ("diffuse_evaporate", 640),
+                   "dominance_pass": ("dominance_pass", 256, True, 0),
+                   "dominated_counts": ("dominated_counts", 2048)}
     meta = {
         "diffuse_evaporate": ("src/repro_torch/csrc/diffusion.cu",
                               "src/repro/kernels/diffusion.py:89"),
@@ -330,8 +345,8 @@ def main() -> int:
                              "src/repro/kernels/dominance.py:101"),
     }
     kernels = []
-    for name, n in main_shapes.items():
-        r = results[(name, n)]
+    for name, key in main_shapes.items():
+        r = results[key]
         kernels.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": launches[name],

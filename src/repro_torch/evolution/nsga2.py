@@ -64,8 +64,7 @@ def _pack_bool_words(mask: torch.Tensor, n_words: int) -> torch.Tensor:
 
 def nondominated_ranks(objectives: torch.Tensor,
                        valid: torch.Tensor | None = None,
-                       groups: torch.Tensor | None = None,
-                       pass_fn=None) -> torch.Tensor:
+                       groups: torch.Tensor | None = None) -> torch.Tensor:
     """objectives: (N, M) minimized. Returns (N,) i32 front index (0 =
     Pareto); rows not ``valid`` keep rank N.
 
@@ -75,15 +74,12 @@ def nondominated_ranks(objectives: torch.Tensor,
     ANDed with the packed front mask.
 
     groups: optional (N,) int — dominance only within a group, so many
-    islands' populations rank independently in ONE kernel launch.
-    pass_fn: override for the fused sweep, ``pass_fn(objectives,
-    groups=...) -> (counts, bitmap)``."""
+    islands' populations rank independently in ONE kernel launch."""
     n = objectives.shape[0]
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=objectives.device)
     obj_masked = torch.where(valid[:, None], objectives, BIG)
-    counts, bitmap = (pass_fn or kops.dominance_pass)(obj_masked,
-                                                      groups=groups)
+    counts, bitmap = kops.dominance_pass(obj_masked, groups=groups)
     n_words = bitmap.shape[1]
     ranks = torch.full((n,), n, dtype=torch.int32, device=objectives.device)
     active = valid
@@ -117,11 +113,6 @@ def nondominated_ranks_peel(objectives, valid=None):
         active = active & ~front
         r += 1
     return ranks
-
-
-# The reference keeps a jit-compiled while-loop twin of the peeling baseline;
-# eager PyTorch runs both as the same host loop.
-nondominated_ranks_peel_while = nondominated_ranks_peel
 
 
 def lexsort(keys) -> torch.Tensor:

@@ -10,14 +10,17 @@ per epoch (restart-safe).
 
 Writes ``pareto_front.json``, ``provenance.json`` and ``populations/`` with
 the reference's keys; a rerun with the same ``--out`` resumes from the last
-committed epoch. Methods and flags whose machinery is not ported yet stop
+committed epoch, and refuses to when the checkpoint was written by a run of
+other settings (model config, GA widths, replicates, device). Methods and flags whose machinery is not ported yet stop
 with an error naming them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import tempfile
 import time
 
 import torch
@@ -46,7 +49,7 @@ def ants_eval_fn(ants_cfg, replicates: int):
 def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
               lam: int = 16, steps_per_epoch: int = 4, epochs: int = 5,
               replicates: int = 5, archive_size: int = 256,
-              merge_top_k: int = 8, out_dir: str = "/tmp/ants",
+              merge_top_k: int = 8, out_dir: str,
               reseed_frac: float = 0.5, device="cuda", printer=print):
     """Island-model NSGA-II calibration of the ants model on ``device``.
     Returns (final IslandState, the pareto_front.json dict)."""
@@ -59,14 +62,31 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
     pop_hook = SavePopulationHook(os.path.join(out_dir, "populations"))
     ckpt_dir = os.path.join(out_dir, "checkpoints")
 
+    # what a checkpoint must match to be resumed (epochs may grow)
+    settings = {
+        "ants": dataclasses.asdict(ants_cfg), "device": dev.type,
+        "n_islands": n_islands, "mu": mu, "lam": lam,
+        "steps_per_epoch": steps_per_epoch, "replicates": replicates,
+        "archive_size": archive_size, "merge_top_k": merge_top_k,
+        "reseed_frac": reseed_frac}
+    settings_json = json.dumps(settings, sort_keys=True)
+    cfg_digest = hash_value(settings)
+
     # restart-safe: resume island state and generator from the last epoch
     start = None
     if (last := checkpoint.latest_step(ckpt_dir)) is not None:
         like = {"state": init_island_state(
                     ga_cfg, torch.Generator(device=dev), n_islands=n_islands,
                     archive_size=archive_size, device=dev),
-                "rng": None}
+                "rng": None, "settings": None}
         saved = checkpoint.restore(ckpt_dir, last, like, device=dev)
+        if (was := saved["settings"].item()) != settings_json:
+            was = json.loads(was)
+            differ = sorted(k for k in settings | was
+                            if settings.get(k) != was.get(k))
+            raise ValueError(
+                f"{ckpt_dir} holds a run with other settings "
+                f"(differing: {', '.join(differ)}); give another out_dir")
         start = saved["state"]
         generator.set_state(torch.from_numpy(saved["rng"]))
         printer(f"[explore] resumed at epoch {last}")
@@ -76,10 +96,6 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
     record = RunRecord(workflow="ants-calibration", scheduler="islands",
                        environment=f"torch:{dev}", started_at=_utcnow())
     run_t0 = time.monotonic()
-    cfg_digest = hash_value({
-        "reduced": reduced, "n_islands": n_islands, "mu": mu, "lam": lam,
-        "steps_per_epoch": steps_per_epoch, "replicates": replicates,
-        "archive_size": archive_size, "merge_top_k": merge_top_k})
     last_epoch_t = [run_t0]
     if start is not None:
         for e in range(1, int(last) + 1):
@@ -92,7 +108,8 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
     def on_epoch(state):
         e = state.epoch
         checkpoint.save(ckpt_dir, e, {"state": state,
-                                      "rng": generator.get_state().numpy()})
+                                      "rng": generator.get_state().numpy(),
+                                      "settings": settings_json})
         now = time.monotonic()
         record.tasks.append(TaskRecord(
             task="island_epoch", capsule=e, environment=record.environment,
@@ -166,7 +183,10 @@ def main(argv=None):
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--replicates", type=int, default=5)
     ap.add_argument("--reseed-frac", type=float, default=0.5)
-    ap.add_argument("--out", default="/tmp/ants")
+    ap.add_argument("--out",
+                    default=os.path.join(tempfile.gettempdir(), "repro_ants"),
+                    help="output and checkpoint directory (default: "
+                         "repro_ants under the temporary directory)")
     # the reference's flags whose machinery is not ported yet: given a
     # non-default value they stop the run (--init-chunk only matters with
     # --init-population)

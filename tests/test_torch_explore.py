@@ -98,6 +98,25 @@ def test_resume_continues_bitwise(port_run, tmp_path):
     assert resumed.total_evaluations == state.total_evaluations
 
 
+@pytest.mark.parametrize("change", [
+    {"reduced": False}, {"replicates": 3}, {"reseed_frac": 0.25}])
+def test_resume_refuses_a_run_of_other_settings(port_run, change):
+    # the same GA widths, so the saved leaves fit; only the settings differ
+    _, _, out = port_run
+    with pytest.raises(ValueError, match="other settings"):
+        explore.calibrate(out_dir=str(out), device="cpu", printer=_quiet,
+                          **dict(FLAGS, **change))
+
+
+def test_cli_default_out_is_under_the_temporary_directory(monkeypatch,
+                                                          tmp_path):
+    seen = {}
+    monkeypatch.setattr(explore.tempfile, "tempdir", str(tmp_path))
+    monkeypatch.setattr(explore, "calibrate", lambda **kw: seen.update(kw))
+    explore.main(["--device", "cpu", "--reduced"])
+    assert Path(seen["out_dir"]).parent == tmp_path
+
+
 def test_reference_state_carries_over(reference_run):
     jstate = reference_run[0]
     jcfg = jnsga2.NSGA2Config(mu=8, genome_dim=2, bounds=BOUNDS)

@@ -1,30 +1,40 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain PyTorch
-version on the card, drives the island-model calibration of the ants model
-at the paper's full model size, measures one chunk of the streaming init,
-and prints one JSON object per line.
+version on the card, drives the island-model calibration and the
+surrogate-assisted calibration of the ants model at the paper's full model
+size, the surrogate's archive-scale fit at 50,000 points, measures one chunk
+of the streaming init, and prints one JSON object per line.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
   1. build    nvcc builds every csrc/*.cu, one process per source at once.
-  2. kernels  each kernel against its plain version at the main path's
+  2. kernels  each kernel against its plain version at the main paths'
               shapes, dominance also with the +BIG rows that ranking
-              writes for empty slots (diffusion bitwise, dominance
-              equal). "ms" is the kernel's time on the card
+              writes for empty slots (diffusion and the GP assembly
+              bitwise, dominance equal, the triangular solve within a
+              stated tolerance). "ms" is the kernel's time on the card
               (torch.profiler's CUDA kernel records), beside its plain
               version's and, where one PyTorch call computes the same
               thing, that call's; "call_ms" is the
               per-call time of back-to-back calls between CUDA events,
               which the host's launch cost sets for small kernels.
   3. parity   simulate_batch on the card against the CPU plain path, same
-              Gumbel noise, REDUCED config: first-empty ticks equal.
+              Gumbel noise, REDUCED config: first-empty ticks equal; and
+              gp_fit on the card against the CPU plain path at n = 80.
   4. calibrate  launch.explore.calibrate(device="cuda", reduced=False) at
               the reference's defaults for 2 epochs, launch counts read
               around it; evaluation count and front checked.
-  5. chunk    one replicated_batch(simulate_batch) chunk at CONFIG:
+  5. surrogate  launch.explore.calibrate_surrogate(device="cuda",
+              reduced=False) through the environment pool: 4 rounds of q=8
+              (2 Sobol, 2 GP), launch counts read around it.
+  6. surrogate_big  a SurrogateExplorer on the card holding 50,000 told
+              points of the archive benchmark's synthetic objective: a
+              cold ask (the inducing-point fit: gp_sqdist and tri_solve),
+              a tell of 8, a warm ask; launch counts read around it.
+  7. chunk    one replicated_batch(simulate_batch) chunk at CONFIG:
               4096 genomes x 5 replicates = 20480 lanes.
-  6. the kernels line, the card's name and power limit, and the last line
+  8. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -127,10 +137,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
 
+    import numpy as np
+
     from repro_torch.ants import model
     from repro_torch.configs.ants_netlogo import CONFIG, REDUCED
     from repro_torch.evolution import nsga2
-    from repro_torch.kernels import build, diffusion, dominance, ops, ref
+    from repro_torch.explore import surrogate
+    from repro_torch.kernels import (build, cholesky, diffusion, dominance,
+                                     gp, ops, ref)
     from repro_torch.launch import explore
 
     t_start = time.monotonic()
@@ -248,6 +262,102 @@ def main() -> int:
     results[("dominated_counts", 2048)] = r
     emit({"phase": "kernels", **r})
 
+    # B4: the surrogate's distance assembly (default run's largest history,
+    # select_lengthscale's subsample, K_mm, K_mn at 50,000), bitwise; the
+    # covariance epilogues at the K_mn shape
+    def points(n):
+        return torch.rand((n, 2), generator=gen, device=dev)
+
+    def ulps(a, b):
+        return (a.view(torch.int32).long() - b.view(torch.int32).long()) \
+            .abs().max().item()
+
+    for n1, n2, kind in ((80, 80, "sqdist"), (1024, 1024, "sqdist"),
+                         (512, 512, "sqdist"), (512, 50000, "sqdist"),
+                         (512, 50000, "matern52"), (512, 50000, "rbf")):
+        x1 = points(n1)
+        x2 = x1 if n1 == n2 else points(n2)
+        if kind == "sqdist":
+            name = "gp_sqdist"
+            run = lambda: gp.gp_sqdist(x1, x2)          # noqa: E731
+            plain = lambda: ref.gp_sqdist_ref(x1, x2)   # noqa: E731
+            epilogue_ops = 0
+        else:
+            name = "gp_matrix"
+            run = lambda: gp.gp_matrix(                 # noqa: E731
+                x1, x2, kind=kind, lengthscale=0.2, variance=1.0)
+            plain = lambda: ref.gp_matrix_ref(          # noqa: E731
+                x1, x2, kind=kind, lengthscale=0.2, variance=1.0)
+            # Matérn: sqrt, div, 4 mul, 2 add, exp; RBF: 2 mul, div, exp
+            epilogue_ops = 9 if kind == "matern52" else 4
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        n_ulp = ulps(got, want)
+        require(torch.equal(got, want), f"{name}({kind}) bitwise at "
+                f"({n1},{n2},2): max abs err {err}, {n_ulp} ulp")
+        b_ms, b_by = bound_ms((n1 + n2) * 2 * 4 + n1 * n2 * 4,
+                              n1 * n2 * (2 * 2 + 2 + epilogue_ops)
+                              + (n1 + n2) * 2 * 2)
+        r = {"kernel": name, "kind": kind, "shape": [n1, n2, 2],
+             "bitwise": True, "max_abs_err": err, "max_ulp": n_ulp,
+             "ms": device_ms(torch, run), "call_ms": call_ms(torch, run),
+             "plain_ms": device_ms(torch, plain, reps=5),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        results[(name, kind, n1, n2)] = r
+        emit({"phase": "kernels", **r})
+
+    # B7: the inducing fit's forward solve L_m A = K_mn at (512, 50,000),
+    # and a backward solve; the kernel on the tile-padded operands that
+    # ops.tri_solve hands it
+    def lower(n):
+        a = torch.randn((n, n), generator=gen, device=dev)
+        # cuSOLVER writes the factor column-major; the kernel takes rows
+        return torch.linalg.cholesky(a @ a.T / n
+                                     + torch.eye(n, device=dev)).contiguous()
+
+    for n, m, trans in ((512, 50000, False), (512, 2048, True)):
+        l = lower(n)
+        b = torch.randn((n, m), generator=gen, device=dev)
+        m_p = -(-m // ops.TRSM_RHS_BLOCK) * ops.TRSM_RHS_BLOCK
+        bp = torch.zeros((n, m_p), device=dev)
+        bp[:, :m] = b
+        run = lambda: cholesky.tri_solve_blocked(   # noqa: E731
+            l, bp, trans=trans)
+        plain = lambda: ref.tri_solve_blocked_ref(  # noqa: E731
+            l, bp, trans=trans, block=ops.CHOL_BLOCK)
+        lt = l.T if trans else l
+        library = lambda: torch.linalg.solve_triangular(  # noqa: E731
+            lt, b, upper=trans)
+        got, want = run(), plain()
+        x = ops.tri_solve(l, b, trans=trans)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        resid = (torch.linalg.matrix_norm(lt @ x - b)
+                 / torch.linalg.matrix_norm(b)).item()
+        # both substitute through explicit inverses of diagonal tiles (64
+        # wide in the kernel, 256 in the plain version) and sum their tile
+        # products in other orders: on these well-conditioned factors
+        # (A A^T / n + I) they agree to 1e-4 of max |X|, and the kernel
+        # solves to a relative residual under 1e-5
+        require(rel < 1e-4 and resid < 1e-5,
+                f"tri_solve trans={trans} at ({n},{m}): rel err {rel}, "
+                f"residual {resid}")
+        b_ms, b_by = bound_ms((n * n + 2 * n * m_p) * 4, n * n * m_p)
+        r = {"kernel": "tri_solve", "trans": trans, "shape": [n, m],
+             "padded_rhs": m_p, "max_abs_err": err, "rel_err": rel,
+             "residual": resid, "tolerance": {"rel_err": 1e-4,
+                                              "residual": 1e-5},
+             "ms": device_ms(torch, run),
+             "call_ms": call_ms(torch, lambda: ops.tri_solve(
+                 l, b, trans=trans), reps=5, inner=3),
+             "plain_ms": device_ms(torch, plain, reps=3),
+             "library_ms": device_ms(torch, library),
+             "bound_ms": b_ms, "bound_by": b_by}
+        results[("tri_solve", trans, n, m)] = r
+        emit({"phase": "kernels", **r})
+
     # -- 3. the card against the CPU plain path on a small input -------------
     rates = torch.tensor([10.0, 30.0, 50.0, 70.0, 90.0, 20.0, 60.0, 95.0])
     evaps = torch.tensor([5.0, 10.0, 20.0, 5.0, 40.0, 15.0, 2.0, 60.0])
@@ -262,6 +372,38 @@ def main() -> int:
             f"{on_cpu.tolist()}")
     emit({"phase": "parity", "config": "REDUCED", "lanes": 8,
           "ticks_empty_equal": True, "ticks_empty": on_card.tolist()})
+
+    # gp_fit on the card (the gp_sqdist kernel, cuSOLVER's batched
+    # Cholesky) against the CPU plain path, n = 80 seeded points of a rough
+    # objective: the same lengthscale; the factor within 1e-3 and alpha
+    # within 1e-2 of its largest entry (each side factors in its own
+    # schedule); the posterior mean within 1e-3
+    rng = np.random.default_rng(0)
+    hx = rng.random((80, 2)).astype(np.float32)
+    hy = (np.sin(9 * hx[:, 0]) * np.cos(7 * hx[:, 1])
+          + 0.3 * hx[:, 1]).astype(np.float32)
+    xq = torch.from_numpy(rng.random((16, 2)).astype(np.float32))
+    scfg = surrogate.SurrogateConfig(bounds=((0.0, 1.0), (0.0, 1.0)))
+    fits = {}
+    for where in ("cpu", "cuda"):
+        st = surrogate.gp_fit(scfg, torch.from_numpy(hx).to(where),
+                              torch.from_numpy(hy).to(where))
+        mean = surrogate.gp_mean_var(scfg, st, xq.to(where))[0]
+        fits[where] = (st, mean.cpu())
+    (sc, mc), (sg, mg) = fits["cpu"], fits["cuda"]
+    chol_err = (sg.chol.cpu() - sc.chol).abs().max().item()
+    alpha_err = ((sg.alpha.cpu() - sc.alpha).abs().max()
+                 / sc.alpha.abs().max()).item()
+    mean_err = (mg - mc).abs().max().item()
+    require(float(sg.lengthscale) == float(sc.lengthscale)
+            and chol_err < 1e-3 and alpha_err < 1e-2 and mean_err < 1e-3,
+            f"gp_fit card vs CPU: lengthscale {float(sg.lengthscale)} vs "
+            f"{float(sc.lengthscale)}, chol {chol_err}, alpha {alpha_err}, "
+            f"mean {mean_err}")
+    emit({"phase": "parity", "what": "gp_fit", "n": 80,
+          "lengthscale": float(sg.lengthscale), "chol_max_abs_err": chol_err,
+          "alpha_rel_err": alpha_err, "posterior_mean_max_abs_err": mean_err,
+          "tolerance": {"chol": 1e-3, "alpha_rel": 1e-2, "mean": 1e-3}})
 
     # -- 4. the main path: calibrate at the paper's model size ---------------
     flags = dict(n_islands=8, mu=16, lam=16, steps_per_epoch=4, epochs=2,
@@ -308,7 +450,109 @@ def main() -> int:
           "front_size": len(obj), "launches": launches,
           "profile_20_ticks_640_lanes": cal_busy})
 
-    # -- 5. one chunk of the streaming init ---------------------------------
+    cal_launches = launches
+
+    # -- 5. the surrogate path at the paper's model size ----------------------
+    sflags = dict(rounds=4, q=8, n_init=16, replicates=3)
+    with tempfile.TemporaryDirectory() as out:
+        ops.reset_kernel_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, result = explore.calibrate_surrogate(
+            reduced=False, device="cuda", out_dir=out,
+            printer=lambda s: emit({"phase": "surrogate", "log": s}),
+            **sflags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sur_launches = ops.kernel_launch_counts()
+        files = sorted(p.name for p in Path(out).iterdir())
+    n_evals = sflags["rounds"] * sflags["q"]
+    require(len(res.objectives) == n_evals == len(result["objectives"]),
+            f"surrogate evaluations {len(res.objectives)} != {n_evals}")
+    require(sur_launches["gp_sqdist"] >= 2,
+            f"gp_sqdist launches {sur_launches['gp_sqdist']} (want >= 2)")
+    require(sur_launches["diffuse_evaporate"] == n_evals * CONFIG.max_ticks,
+            f"diffuse_evaporate launches {sur_launches['diffuse_evaporate']}")
+    require(np.isfinite(res.best_objective)
+            and 0 <= res.best_objective <= CONFIG.max_ticks,
+            f"surrogate best objective {res.best_objective}")
+    require({"surrogate_result.json", "provenance.json"} <= set(files),
+            f"surrogate outputs {files}")
+    # one evaluation alone on this thread, beside the pool's wall per
+    # evaluation: what the pool's six job threads gain or lose
+    one = explore.ants_scalar_eval(False, sflags["replicates"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one(gen, torch.tensor([[50.0, 50.0]], device=dev))
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
+    one_eval = dataclasses.replace(CONFIG, max_ticks=20)
+    g3 = torch.rand((3,), device=dev, generator=gen) * 99
+    sur_busy = device_busy_share(torch, lambda: model.simulate_batch(
+        one_eval, g3, g3, generator=gen))
+    emit({"phase": "surrogate", "config": "CONFIG", **sflags,
+          "wall_s": wall, "evaluations": n_evals,
+          "evaluations_per_hour": n_evals / wall * 3600,
+          "wall_per_evaluation_s": wall / n_evals,
+          "one_evaluation_alone_s": alone_s,
+          "attempts": res.attempts, "repriorities": res.repriorities,
+          "best_objective": res.best_objective,
+          "best_genome": np.asarray(res.best_genome).tolist(),
+          "launches": sur_launches,
+          "profile_20_ticks_3_lanes": sur_busy})
+
+    # -- 6. the surrogate at archive scale: 50,000 told points ---------------
+    def synthetic(x):       # the archive benchmark's objective
+        return ((x[:, 0] - 0.3) ** 2 + (x[:, 1] - 0.7) ** 2
+                + 0.01 * np.sin(17 * x[:, 0])).astype(np.float32)
+
+    n_big = 50000
+    bcfg = surrogate.SurrogateConfig(bounds=((0.0, 1.0), (0.0, 1.0)), q=8,
+                                     n_init=16, seed=0)
+    hist = np.random.default_rng(0).random((n_big, 2)).astype(np.float32)
+    ex = surrogate.SurrogateExplorer(bcfg, device="cuda")
+    ex.load_state_arrays({"x01": hist, "y": synthetic(hist),
+                          "round": np.int32(n_big // bcfg.q)})
+    ops.reset_kernel_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    xq = ex.ask()
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex.tell(xq, synthetic(xq))
+    torch.cuda.synchronize()
+    t_tell = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xq2 = ex.ask()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    big_launches = ops.kernel_launch_counts()
+    state = ex.last_state
+    mean, var = surrogate.gp_mean_var(bcfg, state, torch.from_numpy(
+        np.concatenate([xq, xq2])).to(dev))
+    require(type(state).__name__ == "InducingGPState",
+            f"archive-scale state is {type(state).__name__}")
+    require(big_launches["tri_solve"] >= 1,
+            f"tri_solve launches {big_launches['tri_solve']}")
+    require(big_launches["gp_sqdist"] >= 3,
+            f"gp_sqdist launches {big_launches['gp_sqdist']} (want >= 3)")
+    require(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()
+                 and (var > 0).all()), "archive-scale posterior finite")
+    for batch in (xq, xq2):
+        require(batch.shape == (8, 2) and bool(np.isfinite(batch).all())
+                and bool(((batch >= 0) & (batch <= 1)).all()),
+                f"archive-scale proposals in the unit cube: {batch}")
+    emit({"phase": "surrogate_big", "history": n_big, "q": bcfg.q,
+          "n_inducing": bcfg.n_inducing, "n_max_exact": bcfg.n_max_exact,
+          "cold_ask_s": t_cold, "tell_s": t_tell, "warm_ask_s": t_warm,
+          "lengthscale": float(state.lengthscale),
+          "best_seen": float(ex.best[1]),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": big_launches})
+
+    # -- 7. one chunk of the streaming init ---------------------------------
     genomes = torch.rand((4096, 2), generator=gen, device=dev) * 99
     eval_fn = explore.ants_eval_fn(CONFIG, 5)
     ops.reset_kernel_launch_counts()
@@ -332,27 +576,41 @@ def main() -> int:
           "launches": ops.kernel_launch_counts(),
           "profile_20_ticks_20480_lanes": chunk_busy})
 
-    # -- 6. the kernels line, the card, the contract line --------------------
-    main_shapes = {"diffuse_evaporate": ("diffuse_evaporate", 640),
-                   "dominance_pass": ("dominance_pass", 256, True, 0),
-                   "dominated_counts": ("dominated_counts", 2048)}
-    meta = {
-        "diffuse_evaporate": ("src/repro_torch/csrc/diffusion.cu",
-                              "src/repro/kernels/diffusion.py:89"),
-        "dominance_pass": ("src/repro_torch/csrc/dominance.cu",
-                           "src/repro/kernels/dominance.py:154"),
-        "dominated_counts": ("src/repro_torch/csrc/dominance.cu",
-                             "src/repro/kernels/dominance.py:101"),
-    }
+    # -- 8. the kernels line, the card, the contract line --------------------
+    # (kernel, result key, source, TPU kernel, the path whose run gives the
+    # launches); every path's counts are listed beside it
+    by_path = {"calibrate": cal_launches, "surrogate": sur_launches,
+               "surrogate_big": big_launches}
+    rows = (
+        ("diffuse_evaporate", ("diffuse_evaporate", 640), "diffusion.cu",
+         "src/repro/kernels/diffusion.py:89", "calibrate"),
+        ("dominance_pass", ("dominance_pass", 256, True, 0), "dominance.cu",
+         "src/repro/kernels/dominance.py:154", "calibrate"),
+        ("dominated_counts", ("dominated_counts", 2048), "dominance.cu",
+         "src/repro/kernels/dominance.py:101", "calibrate"),
+        ("gp_sqdist", ("gp_sqdist", "sqdist", 512, 50000), "gp.cu",
+         "src/repro/kernels/gp.py:93", "surrogate_big"),
+        # gp_matrix has no caller in the port (as in the reference): it is
+        # held against its plain version above and no path launches it
+        ("gp_matrix", ("gp_matrix", "matern52", 512, 50000), "gp.cu",
+         "src/repro/kernels/gp.py:99", None),
+        ("tri_solve", ("tri_solve", False, 512, 50000), "trisolve.cu",
+         "src/repro/kernels/cholesky.py:282", "surrogate_big"),
+    )
     kernels = []
-    for name, key in main_shapes.items():
+    for name, key, source, replaces, path in rows:
         r = results[key]
         kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": by_path[path][name] if path else 0,
+            "path": path,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "shape": r["shape"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

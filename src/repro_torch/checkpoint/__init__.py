@@ -1,2 +1,3 @@
 from repro_torch.checkpoint.checkpointer import (latest_step,  # noqa
-                                                 prune, restore, save)
+                                                 prune, require_settings,
+                                                 restore, save)

@@ -117,6 +117,19 @@ def restore(directory: str, step: int, like: Any, device=None):
     return _unflatten(like, leaves)
 
 
+def require_settings(directory: str, saved: str, settings: str) -> None:
+    """Refuse to resume a run whose checkpoint holds other settings:
+    ``saved`` and ``settings`` are JSON objects (strings); raises
+    ``ValueError`` naming the keys that differ."""
+    if saved == settings:
+        return
+    was, now = json.loads(saved), json.loads(settings)
+    differ = sorted(k for k in now | was if now.get(k) != was.get(k))
+    raise ValueError(f"{directory} holds a run with other settings "
+                     f"(differing: {', '.join(differ)}); give another "
+                     f"out_dir")
+
+
 def prune(directory: str, keep: int = 3) -> None:
     """Keep the newest ``keep`` complete checkpoints (bounded disk)."""
     if not os.path.isdir(directory):

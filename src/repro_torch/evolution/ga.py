@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.evolution import nsga2
 from repro_torch.evolution.nsga2 import NSGA2Config
+from repro_torch.runtime.device import resolve_device
 
 
 class GAState(NamedTuple):
@@ -28,8 +29,10 @@ class GAState(NamedTuple):
 
 
 def init_state(cfg: NSGA2Config, generator: torch.Generator, *,
-               n_islands: int = 1, device=None) -> GAState:
-    """Uniform random unevaluated populations within the bounds."""
+               n_islands: int = 1, device="cuda") -> GAState:
+    """Uniform random unevaluated populations within the bounds, on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     lo, hi = cfg.lo(device), cfg.hi(device)
     genomes = torch.rand((n_islands, cfg.mu, cfg.genome_dim),
                          generator=generator, device=device) * (hi - lo) + lo

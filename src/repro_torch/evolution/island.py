@@ -23,6 +23,7 @@ import torch
 from repro_torch.evolution import ga, nsga2
 from repro_torch.evolution.archive import Archive, init_archive, merge
 from repro_torch.evolution.nsga2 import NSGA2Config
+from repro_torch.runtime.device import resolve_device
 
 
 class IslandState(NamedTuple):
@@ -34,7 +35,8 @@ class IslandState(NamedTuple):
 
 def init_island_state(cfg: NSGA2Config, generator: torch.Generator, *,
                       n_islands: int, archive_size: int,
-                      device=None) -> IslandState:
+                      device="cuda") -> IslandState:
+    device = resolve_device(device)
     return IslandState(
         islands=ga.init_state(cfg, generator, n_islands=n_islands,
                               device=device),
@@ -191,15 +193,18 @@ def run_islands(cfg: NSGA2Config, eval_fn, generator: torch.Generator, *,
                 merge_top_k: int = 0, reseed_frac: float = 0.5,
                 pipeline: bool = False, epochs_per_superstep: int = 0,
                 start_state: IslandState = None,
-                device=None) -> IslandState:
+                device="cuda") -> IslandState:
     """Synchronous host loop over epochs, ``checkpoint_fn(state)`` after
-    each. ``start_state`` resumes (the caller restores the generator)."""
+    each. ``start_state`` resumes (the caller restores the generator). A
+    fresh state is made on ``device``: the card unless the caller asks for
+    the CPU."""
     if pipeline:
         raise NotImplementedError(
             "pipeline=True (double-buffered epochs) is not ported yet")
     if epochs_per_superstep:
         raise NotImplementedError(
             "epochs_per_superstep (fused supersteps) is not ported yet")
+    device = resolve_device(device)
     state = start_state if start_state is not None else init_island_state(
         cfg, generator, n_islands=n_islands, archive_size=archive_size,
         device=device)

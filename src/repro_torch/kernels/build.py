@@ -15,7 +15,14 @@ ptxas's register and shared-memory report lands beside each library as
 ``<name>-<hash>.log``.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the Python
-wrappers raise when it is not 0.
+wrappers raise when it is not 0, and count each launch through
+``count_launch``.
+
+Thread safety: the environment pool calls kernels from several threads at
+once. ``load`` builds and loads under one lock, so a fresh build directory
+sees one ``nvcc`` per source however many threads ask; a build's temporary
+file carries the process and thread ids; launch counts change under one
+lock, so they are exact after a pool run.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -31,12 +39,14 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("diffusion", "dominance")
+SOURCES = ("diffusion", "dominance", "gp", "trisolve")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -74,7 +84,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         if out.exists():
             secs[name] = 0.0
             continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        tmp = out.with_suffix(
+            f".tmp{os.getpid()}_{threading.get_ident()}.so")
         log = open(out.with_suffix(".log"), "w")
         procs[name] = (subprocess.Popen(
             [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
@@ -101,13 +112,29 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    if name not in _LOADED:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        _LOADED[name] = ctypes.CDLL(str(path))
-    return _LOADED[name]
+    """The loaded library of ``csrc/<name>.cu``, built on first use (by
+    one thread, however many ask at once)."""
+    with _LOAD_LOCK:
+        if name not in _LOADED:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            _LOADED[name] = ctypes.CDLL(str(path))
+        return _LOADED[name]
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel
+    wrapper, under the module's lock (a bare ``+= 1`` loses updates when
+    pool threads launch at once)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def set_launch_count(wrapper, value: int = 0) -> None:
+    """Set a wrapper's launch count under the same lock."""
+    with _COUNT_LOCK:
+        wrapper.launches = value
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -52,7 +52,7 @@ def diffuse_evaporate(chem: torch.Tensor, rate: torch.Tensor,
         err = fn(chem.data_ptr(), rate.data_ptr(), evap.data_ptr(),
                  out.data_ptr(), n, w, stream)
     build.check(lib, err, "diffuse_evaporate launch")
-    diffuse_evaporate.launches += 1
+    build.count_launch(diffuse_evaporate)
     return out
 
 

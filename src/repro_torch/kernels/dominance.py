@@ -79,7 +79,7 @@ def dominance_pass(rows, cols=None, groups=None, groups_cols=None):
         err = fn(rows.data_ptr(), cols.data_ptr(), g_rows, g_cols, ni, nj, m,
                  counts.data_ptr(), bitmap.data_ptr(), stream)
     build.check(lib, err, "dominance_pass launch")
-    dominance_pass.launches += 1
+    build.count_launch(dominance_pass)
     return counts, bitmap
 
 
@@ -95,7 +95,7 @@ def dominated_counts(objectives):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(objectives.data_ptr(), n, m, counts.data_ptr(), stream)
     build.check(lib, err, "dominated_counts launch")
-    dominated_counts.launches += 1
+    build.count_launch(dominated_counts)
     return counts
 
 

@@ -8,14 +8,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
+from repro_torch.kernels import cholesky as _cholesky
 from repro_torch.kernels import diffusion as _diffusion
 from repro_torch.kernels import dominance as _dominance
+from repro_torch.kernels import gp as _gp
 from repro_torch.kernels import ref
 
 KERNELS = {
     "diffuse_evaporate": _diffusion.diffuse_evaporate,
     "dominance_pass": _dominance.dominance_pass,
     "dominated_counts": _dominance.dominated_counts,
+    "gp_sqdist": _gp.gp_sqdist,
+    "gp_matrix": _gp.gp_matrix,
+    "tri_solve": _cholesky.tri_solve_blocked,
 }
 
 
@@ -26,7 +32,7 @@ def kernel_launch_counts() -> dict:
 
 def reset_kernel_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        build.set_launch_count(fn, 0)
 
 
 def _on_cpu(x: torch.Tensor) -> bool:
@@ -87,3 +93,68 @@ def dominance_pass(rows, cols=None, groups=None, groups_cols=None):
     if _on_cpu(rows):
         return ref.dominance_pass_ref(rows, cols, groups, groups_cols)
     return _dominance.dominance_pass(rows, cols, groups, groups_cols)
+
+
+# --------------------------------------------------------------------------
+# GP covariance assembly
+# --------------------------------------------------------------------------
+def gp_sqdist(x1, x2):
+    """(N1, D) x (N2, D) -> (N1, N2) f32 squared distances (fused pass)."""
+    x1 = x1.to(torch.float32).contiguous()
+    x2 = x2.to(torch.float32).contiguous()
+    if _on_cpu(x1):
+        return ref.gp_sqdist_ref(x1, x2)
+    return _gp.gp_sqdist(x1, x2)
+
+
+def gp_matrix(x1, x2, *, kind="matern52", lengthscale=0.2, variance=1.0):
+    """Fused covariance assembly for fixed (float) hyper-parameters."""
+    x1 = x1.to(torch.float32).contiguous()
+    x2 = x2.to(torch.float32).contiguous()
+    if _on_cpu(x1):
+        return ref.gp_matrix_ref(x1, x2, kind=kind,
+                                 lengthscale=float(lengthscale),
+                                 variance=float(variance))
+    return _gp.gp_matrix(x1, x2, kind=kind, lengthscale=lengthscale,
+                         variance=variance)
+
+
+# --------------------------------------------------------------------------
+# Blocked triangular solve
+# --------------------------------------------------------------------------
+CHOL_BLOCK = 256         # the reference's pinned tile edge (64 * 2**j)
+TRSM_RHS_BLOCK = 256
+
+
+def _chol_block_ok(block: int) -> bool:
+    q, r = divmod(block, ref.CHOL_BASE)
+    return r == 0 and q >= 1 and (q & (q - 1)) == 0
+
+
+def _ceil_to(n: int, b: int) -> int:
+    return -(-n // b) * b
+
+
+def tri_solve(l, b, *, trans=False, block=CHOL_BLOCK,
+              rhs_block=TRSM_RHS_BLOCK):
+    """Blocked triangular solve against a lower factor: L X = B
+    (``trans=False``) or L^T X = B (``trans=True``); b (n, m) or (n,). Pads
+    L with identity and B with zeros to multiples of ``block`` and
+    ``rhs_block`` (the reference's contract), solves, slices back."""
+    if not _chol_block_ok(block):
+        raise ValueError(f"block must be 64*2^j, got {block}")
+    n = l.shape[0]
+    vec = b.dim() == 1
+    bm = b[:, None] if vec else b
+    m = bm.shape[1]
+    n_p, m_p = _ceil_to(n, block), _ceil_to(m, rhs_block)
+    lp = torch.eye(n_p, dtype=torch.float32, device=l.device)
+    lp[:n, :n] = l
+    bp = torch.zeros((n_p, m_p), dtype=torch.float32, device=l.device)
+    bp[:n, :m] = bm
+    if _on_cpu(l):
+        xs = ref.tri_solve_blocked_ref(lp, bp, trans=trans, block=block)
+    else:
+        xs = _cholesky.tri_solve_blocked(lp, bp, trans=trans)
+    xs = xs[:n, :m]
+    return xs[:, 0] if vec else xs

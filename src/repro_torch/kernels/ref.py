@@ -103,3 +103,131 @@ def dominance_pass_ref(rows, cols=None, groups=None, groups_cols=None):
     w = -(-nj // 32)
     padded = F.pad(dom, (0, w * 32 - nj))
     return counts, pack_words_u32(padded.reshape(ni, w, 32))
+
+
+# ---------------------------------------------------------------------------
+# GP covariance assembly (B4)
+# ---------------------------------------------------------------------------
+def gp_sqdist_ref(x1, x2):
+    """(..., N1, D), (..., N2, D) -> (..., N1, N2) f32 squared Euclidean
+    distances in the expanded form ``(||a||^2 + ||b||^2) - 2 a.b``, clamped
+    at 0, as ``repro.kernels.ref.gp_sqdist_ref`` computes them.
+
+    Each sum over D runs as an explicit loop over the columns, from the
+    product of column 0 upwards, one rounded multiply and one rounded add
+    per term: ``csrc/gp.cu`` follows the same order (without FMA), so the
+    kernel equals this function bitwise on the card. Leading batch
+    dimensions broadcast (the acquisition ascent scores all its starts in
+    one call); autograd runs through it."""
+    d = x1.shape[-1]
+    n1 = x1[..., 0] * x1[..., 0]
+    n2 = x2[..., 0] * x2[..., 0]
+    cross = x1[..., :, None, 0] * x2[..., None, :, 0]
+    for k in range(1, d):
+        n1 = n1 + x1[..., k] * x1[..., k]
+        n2 = n2 + x2[..., k] * x2[..., k]
+        cross = cross + x1[..., :, None, k] * x2[..., None, :, k]
+    d2 = n1[..., :, None] + n2[..., None, :] - 2.0 * cross
+    # maximum (not clamp): ties split the gradient as jnp.maximum does
+    return torch.maximum(d2, torch.zeros((), dtype=d2.dtype,
+                                         device=d2.device))
+
+
+SQRT5 = float(torch.sqrt(torch.tensor(5.0)))   # sqrt(5) rounded to f32
+
+
+def gp_kernel_fn(kind, d2, lengthscale, variance):
+    """Map squared distances through a stationary covariance function
+    (``repro.kernels.ref.gp_kernel_fn``): "rbf" or "matern52".
+
+    ``lengthscale`` is a float or a tensor that broadcasts against ``d2``
+    (the lengthscale sweep passes a (G, 1, 1) grid). A float becomes an f32
+    tensor first, so every division is a true IEEE division on the CPU and
+    on the card alike (the card divides by a Python scalar as a multiply by
+    its reciprocal); ``csrc/gp.cu``'s epilogues do the same operations in
+    the same order. The Matérn branch keeps the reference's safe sqrt: its
+    forward value at d2 = 0 is 0, and the ``where`` keeps d/d(d2) finite
+    there, so the acquisition ascent can differentiate through k(x, x)."""
+    if not isinstance(lengthscale, torch.Tensor):
+        lengthscale = torch.tensor(lengthscale, dtype=torch.float32,
+                                   device=d2.device)
+    if kind == "rbf":
+        return variance * torch.exp(-0.5 * d2 / (lengthscale * lengthscale))
+    if kind == "matern52":
+        d2p = torch.maximum(d2, torch.zeros((), dtype=d2.dtype,
+                                            device=d2.device))
+        pos = d2p > 0.0
+        r = torch.where(pos, torch.sqrt(torch.where(pos, d2p, 1.0)),
+                        0.0) / lengthscale
+        return variance * (1.0 + SQRT5 * r + (5.0 / 3.0) * (r * r)) \
+            * torch.exp(-SQRT5 * r)
+    raise ValueError(f"unknown GP kernel kind: {kind}")
+
+
+def gp_matrix_ref(x1, x2, *, kind="matern52", lengthscale=0.2, variance=1.0):
+    """Covariance assembly for fixed hyper-parameters: ``gp_kernel_fn`` of
+    ``gp_sqdist_ref``."""
+    return gp_kernel_fn(kind, gp_sqdist_ref(x1, x2), lengthscale, variance)
+
+
+# ---------------------------------------------------------------------------
+# Blocked triangular solve (B7)
+# ---------------------------------------------------------------------------
+CHOL_BASE = 64   # base tile edge of the recursive tile inverse
+
+
+def tri_inv_base_ref(l):
+    """Inverse of one (b, b) lower-triangular tile, b <= CHOL_BASE, by
+    forward substitution on the identity, one row at a time."""
+    b = l.shape[0]
+    eye = torch.eye(b, dtype=l.dtype, device=l.device)
+    rows = []
+    for i in range(b):
+        acc = eye[i]
+        if i:
+            acc = acc - l[i, :i] @ torch.stack(rows)
+        rows.append(acc / l[i, i])
+    return torch.stack(rows)
+
+
+def tri_inv_tile_ref(l):
+    """Inverse of one (block, block) lower-triangular tile by recursive
+    halving (``repro.kernels.ref.tri_inv_tile_ref``): inv([[L11, 0], [L21,
+    L22]]) has lower-left block -L22^-1 L21 L11^-1, so only the CHOL_BASE
+    leaves substitute."""
+    b = l.shape[0]
+    if b <= CHOL_BASE:
+        return tri_inv_base_ref(l)
+    h = b // 2
+    i11 = tri_inv_tile_ref(l[:h, :h])
+    i22 = tri_inv_tile_ref(l[h:, h:])
+    z = torch.zeros((h, b - h), dtype=l.dtype, device=l.device)
+    return torch.cat([torch.cat([i11, z], 1),
+                      torch.cat([-(i22 @ (l[h:, :h] @ i11)), i22], 1)], 0)
+
+
+def tri_solve_blocked_ref(l, b, *, trans=False, block=256):
+    """Blocked triangular solve (``repro.kernels.ref.tri_solve_blocked_ref``):
+    L (n_p, n_p) lower, identity-padded past the true size, B (n_p, m_p)
+    with n_p % block == 0 -> X with L X = B (forward) or L^T X = B
+    (``trans``, backward). Row blocks substitute in sequence; each is B's
+    row block minus the tile products with the blocks already solved, then
+    one product with the explicit inverse of the diagonal tile. The
+    reference also splits the RHS into independent column panels; the
+    panels never interact, so this version takes all columns at once."""
+    nb = l.shape[0] // block
+
+    def tile(i, j):
+        t = l[i * block:(i + 1) * block, j * block:(j + 1) * block]
+        return t.T if trans else t
+
+    order = range(nb - 1, -1, -1) if trans else range(nb)
+    xs = [None] * nb
+    for i in order:
+        s = b[i * block:(i + 1) * block]
+        for j in (range(i + 1, nb) if trans else range(i)):
+            s = s - (tile(j, i) if trans else tile(i, j)) @ xs[j]
+        inv = tri_inv_tile_ref(l[i * block:(i + 1) * block,
+                                 i * block:(i + 1) * block])
+        xs[i] = (inv.T if trans else inv) @ s
+    return torch.cat(xs, 0)

@@ -1,18 +1,24 @@
-"""The paper-centric entry point, ported from ``repro.launch.explore``: calibrate
-the ants model with island-model NSGA-II on one CUDA device, checkpointed
-per epoch (restart-safe).
+"""The paper-centric entry point, ported from ``repro.launch.explore``:
+calibrate the ants model on one CUDA device with island-model NSGA-II
+(default) or the surrogate-assisted GP ask/tell engine, checkpointed per
+epoch or round (restart-safe).
 
     PYTHONPATH=src python -m repro_torch.launch.explore --islands 8 \\
         --epochs 5 --out /tmp/ants_calibration              # on the card
 
+    PYTHONPATH=src python -m repro_torch.launch.explore --method surrogate \\
+        --rounds 8 --out /tmp/ants_surrogate                # on the card
+
     PYTHONPATH=src python -m repro_torch.launch.explore --reduced \\
         --device cpu --out /tmp/ants_cpu                    # plain path
 
-Writes ``pareto_front.json``, ``provenance.json`` and ``populations/`` with
-the reference's keys; a rerun with the same ``--out`` resumes from the last
-committed epoch, and refuses to when the checkpoint was written by a run of
-other settings (model config, GA widths, replicates, device). Methods and flags whose machinery is not ported yet stop
-with an error naming them.
+Islands write ``pareto_front.json``, ``provenance.json`` and
+``populations/``; the surrogate writes ``surrogate_result.json`` and
+``provenance.json``; both with the reference's keys. A rerun with the same
+``--out`` resumes from the last committed epoch or round, and refuses to
+when the checkpoint was written by a run of other settings (model config,
+widths, replicates, device). Methods and flags whose machinery is not
+ported yet stop with an error naming them.
 """
 from __future__ import annotations
 
@@ -23,18 +29,37 @@ import os
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from repro_torch import checkpoint
 from repro_torch.ants import simulate_batch
 from repro_torch.configs.ants_netlogo import BOUNDS, CONFIG, REDUCED
-from repro_torch.core import Context, SavePopulationHook
+from repro_torch.core import (Context, EnvironmentPool, FaultSpec,
+                              LocalEnvironment, SavePopulationHook)
 from repro_torch.core.cache import hash_value
 from repro_torch.core.scheduler import RunRecord, TaskRecord, _utcnow
 from repro_torch.evolution import (NSGA2Config, init_island_state,
                                    pareto_front, run_islands)
 from repro_torch.explore import replicated_batch
+from repro_torch.explore.surrogate import SurrogateConfig, run_surrogate
 from repro_torch.runtime.device import make_generator, resolve_device
+
+
+def make_init_pool(fault_rate: float = 0.0, *, workers: int = 3,
+                   capacity: int = 2, retries: int = 8,
+                   backoff_s: float = 0.05,
+                   timeout_s: float = None) -> EnvironmentPool:
+    """The local evaluation pool: a few thread-backed workers, optionally
+    with an injected per-attempt failure rate (the paper's unreliable-EGI
+    regime, reproduced on one host). Device-set members
+    (``--pool-devices``) are not ported yet."""
+    envs = [LocalEnvironment(
+        name=f"worker{i}", capacity=capacity, timeout_s=timeout_s,
+        faults=(FaultSpec(fail_rate=fault_rate, seed=i)
+                if fault_rate > 0 else None))
+        for i in range(workers)]
+    return EnvironmentPool(envs, retries=retries, backoff_s=backoff_s)
 
 
 def ants_eval_fn(ants_cfg, replicates: int):
@@ -80,13 +105,8 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
                     archive_size=archive_size, device=dev),
                 "rng": None, "settings": None}
         saved = checkpoint.restore(ckpt_dir, last, like, device=dev)
-        if (was := saved["settings"].item()) != settings_json:
-            was = json.loads(was)
-            differ = sorted(k for k in settings | was
-                            if settings.get(k) != was.get(k))
-            raise ValueError(
-                f"{ckpt_dir} holds a run with other settings "
-                f"(differing: {', '.join(differ)}); give another out_dir")
+        checkpoint.require_settings(ckpt_dir, saved["settings"].item(),
+                                    settings_json)
         start = saved["state"]
         generator.set_state(torch.from_numpy(saved["rng"]))
         printer(f"[explore] resumed at epoch {last}")
@@ -154,6 +174,75 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
     return state, front
 
 
+def ants_scalar_eval(reduced: bool = True, replicates: int = 3,
+                     objective: int = 0):
+    """(generator, genomes (n, 2)) -> (n,) scalar fitness for the
+    surrogate: the replicated-median time to deplete food source
+    ``objective`` (minimize); ``objective=None`` averages all three."""
+    batch = ants_eval_fn(REDUCED if reduced else CONFIG, replicates)
+
+    def eval_fn(generator, genomes):
+        obj = batch(generator, genomes)
+        return obj.mean(dim=-1) if objective is None else obj[:, objective]
+
+    return eval_fn
+
+
+def calibrate_surrogate(*, reduced: bool = True, rounds: int = 8, q: int = 8,
+                        n_init: int = 16, replicates: int = 3,
+                        acquisition: str = "qei", fault_rate: float = 0.0,
+                        out_dir: str, device="cuda", printer=print):
+    """Surrogate-assisted calibration of the ants model on ``device``: Sobol
+    seeding, then GP + q-EI rounds streamed through the fault-tolerant
+    environment pool, checkpointed per round (restart-safe; a checkpoint of
+    other settings is refused), with the reference's provenance schema.
+    Returns (SurrogateResult, the surrogate_result.json dict)."""
+    dev = resolve_device(device)
+    ants_cfg = REDUCED if reduced else CONFIG
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = SurrogateConfig(bounds=BOUNDS, q=q, n_init=n_init,
+                          acquisition=acquisition, seed=0)
+    # what a checkpoint must match to be resumed (rounds may grow; the
+    # fault rate changes where jobs run, never what they return)
+    settings = json.dumps({
+        "ants": dataclasses.asdict(ants_cfg), "device": dev.type,
+        "surrogate": dataclasses.asdict(cfg), "replicates": replicates},
+        sort_keys=True)
+    record = RunRecord(workflow="ants-surrogate", scheduler="ask-tell",
+                       environment="pool", started_at=_utcnow())
+    pool = make_init_pool(fault_rate)
+    t0 = time.time()
+    try:
+        res = run_surrogate(
+            cfg, ants_scalar_eval(reduced, replicates), rounds=rounds,
+            environment=pool, record=record, device=dev, settings=settings,
+            checkpoint_dir=os.path.join(out_dir, "surrogate_checkpoints"),
+            progress=lambda r, n: printer(f"[explore] round {r}/{n}"))
+    finally:
+        pool.shutdown()
+    dt = time.time() - t0
+    printer(f"[explore] surrogate: {len(res.objectives)} evaluations in "
+            f"{dt:.1f}s ({res.attempts} attempts, {res.repriorities} "
+            f"re-prioritizations, {res.resumed_rounds} rounds resumed) on "
+            f"{dev}; best {res.best_objective:.1f} at {res.best_genome}")
+    out = {
+        "best_genome": np.asarray(res.best_genome).tolist(),
+        "best_objective": res.best_objective,
+        "genomes": np.asarray(res.genomes).tolist(),
+        "objectives": np.asarray(res.objectives).tolist(),
+        "rounds": res.rounds_done,
+        "attempts": res.attempts,
+        "repriorities": res.repriorities,
+        "fault_rate": fault_rate,
+        "wall_s": dt,
+    }
+    with open(os.path.join(out_dir, "surrogate_result.json"), "w") as f:
+        json.dump(out, f, indent=2)
+    record.finalize(dt)
+    record.save(os.path.join(out_dir, "provenance.json"))
+    return res, out
+
+
 # flags of the reference CLI whose machinery the port does not have yet
 _NOT_PORTED = {"pipeline": "--pipeline", "superstep": "--superstep",
                "mesh": "--mesh", "distributed": "--distributed",
@@ -161,17 +250,18 @@ _NOT_PORTED = {"pipeline": "--pipeline", "superstep": "--superstep",
                "num_processes": "--num-processes",
                "process_id": "--process-id",
                "init_population": "--init-population",
-               "fault_rate": "--fault-rate", "pool_devices": "--pool-devices"}
+               "pool_devices": "--pool-devices"}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="Island-model NSGA-II calibration of the ants model "
-                    "(PyTorch/CUDA port).")
+        description="Calibration of the ants model (PyTorch/CUDA port).")
     ap.add_argument("--method",
                     choices=("islands", "surrogate", "surrogate-mo",
                              "service"), default="islands",
-                    help="only 'islands' is ported yet")
+                    help="islands: island-model NSGA-II; surrogate: GP + "
+                         "q-EI ask/tell through the environment pool "
+                         "(surrogate-mo and service are not ported yet)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions of "
                          "the kernels")
@@ -199,14 +289,36 @@ def main(argv=None):
     ap.add_argument("--process-id", type=int, default=None)
     ap.add_argument("--init-population", type=int, default=0)
     ap.add_argument("--init-chunk", type=int, default=2048)
-    ap.add_argument("--fault-rate", type=float, default=0.0)
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="injected per-attempt job-failure rate of the "
+                         "surrogate's evaluation pool (results stay "
+                         "bit-exact)")
     ap.add_argument("--pool-devices", type=int, default=0)
+    ap.add_argument("--rounds", type=int, default=8,
+                    help="surrogate ask/tell rounds (of --q proposals each)")
+    ap.add_argument("--q", type=int, default=8,
+                    help="surrogate proposals per round (q-EI batch size)")
+    ap.add_argument("--n-init", type=int, default=16,
+                    help="Sobol space-filling evaluations seeding the GP")
+    ap.add_argument("--acquisition", choices=("qei", "qucb"), default="qei")
     args = ap.parse_args(argv)
-    if args.method != "islands":
-        ap.error(f"--method {args.method} is not ported yet (only islands)")
+    if args.method not in ("islands", "surrogate"):
+        ap.error(f"--method {args.method} is not ported yet (only islands "
+                 f"and surrogate)")
     for dest, flag in _NOT_PORTED.items():
         if getattr(args, dest) not in (None, False, 0, 0.0, ""):
             ap.error(f"{flag} is not ported yet")
+    if args.method == "surrogate":
+        calibrate_surrogate(reduced=args.reduced, rounds=args.rounds,
+                            q=args.q, n_init=args.n_init,
+                            replicates=args.replicates,
+                            acquisition=args.acquisition,
+                            fault_rate=args.fault_rate, out_dir=args.out,
+                            device=args.device)
+        return
+    if args.fault_rate:
+        ap.error("--fault-rate is not ported yet for --method islands (it "
+                 "comes with --init-population)")
     calibrate(reduced=args.reduced, n_islands=args.islands, mu=args.mu,
               lam=args.lam, steps_per_epoch=args.steps_per_epoch,
               epochs=args.epochs, replicates=args.replicates,

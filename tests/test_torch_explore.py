@@ -152,7 +152,7 @@ def test_calibrate_refuses_missing_cuda(tmp_path):
     ["--pipeline"], ["--superstep", "2"], ["--mesh", "data=2"],
     ["--distributed"], ["--init-population", "4096"],
     ["--fault-rate", "0.3"], ["--pool-devices", "2"],
-    ["--method", "surrogate"]])
+    ["--method", "surrogate-mo"], ["--method", "service"]])
 def test_cli_flags_not_ported_yet(argv, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:
         explore.main(argv + ["--device", "cpu", "--out", str(tmp_path)])
@@ -170,11 +170,25 @@ def test_run_islands_refuses_unported_schedules():
                            epochs_per_superstep=2)
 
 
+def test_run_islands_defaults_to_the_card(monkeypatch):
+    # the GA entry points resolve device="cuda" unless told otherwise, so
+    # a caller that names no device never runs on the CPU unawares
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = nsga2.NSGA2Config(mu=4, genome_dim=2, bounds=BOUNDS)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        island.run_islands(cfg, None, torch.Generator(), n_islands=1, lam=1,
+                           steps_per_epoch=1, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        island.init_island_state(cfg, torch.Generator(), n_islands=1,
+                                 archive_size=4)
+
+
 def test_checkpoint_roundtrip(tmp_path):
     gen = torch.Generator().manual_seed(3)
     tree = {"state": island.init_island_state(
         nsga2.NSGA2Config(mu=4, genome_dim=2, bounds=BOUNDS), gen,
-        n_islands=2, archive_size=6), "rng": gen.get_state().numpy()}
+        n_islands=2, archive_size=6, device="cpu"),
+        "rng": gen.get_state().numpy()}
     for step in (1, 2, 3):
         checkpoint.save(str(tmp_path), step, tree)
     assert checkpoint.latest_step(str(tmp_path)) == 3

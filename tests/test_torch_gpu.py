@@ -9,7 +9,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import diffusion, dominance, ops, ref  # noqa: E402
+from repro_torch.kernels import (cholesky, diffusion, dominance, gp, ops,  # noqa: E402
+                                 ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -63,8 +64,14 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     ops.diffuse_evaporate(torch.zeros((2, 8, 8), device=cuda),
                           torch.zeros(2, device=cuda),
                           torch.zeros(2, device=cuda))
+    ops.gp_sqdist(torch.zeros((4, 2), device=cuda),
+                  torch.zeros((3, 2), device=cuda))
+    ops.gp_matrix(torch.zeros((4, 2), device=cuda),
+                  torch.zeros((3, 2), device=cuda))
+    ops.tri_solve(torch.eye(5, device=cuda), torch.zeros(5, device=cuda))
     assert ops.kernel_launch_counts() == {
-        "diffuse_evaporate": 1, "dominance_pass": 1, "dominated_counts": 1}
+        "diffuse_evaporate": 1, "dominance_pass": 1, "dominated_counts": 1,
+        "gp_sqdist": 1, "gp_matrix": 1, "tri_solve": 1}
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -76,6 +83,58 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         dominance.dominance_pass(torch.zeros((4, 3), device=cuda),
                                  groups=torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError, match="feature dim"):
+        gp.gp_sqdist(torch.zeros((4, 33), device=cuda),
+                     torch.zeros((3, 33), device=cuda))
+    with pytest.raises(ValueError, match="multiples of 64"):
+        cholesky.tri_solve_blocked(torch.eye(100, device=cuda),
+                                   torch.zeros((100, 64), device=cuda))
+
+
+@pytest.mark.parametrize("n1,n2,d,dup", [
+    (1, 1, 1, 0), (37, 53, 2, 0), (80, 80, 2, 8), (255, 1031, 5, 0),
+    (64, 300, 32, 0)])
+def test_gp_kernel_bitwise(cuda, n1, n2, d, dup):
+    """Distances, Matérn-5/2 and RBF: bitwise equal to the plain versions
+    (same order of operations, no FMA, IEEE division/sqrt/exp)."""
+    g = _gen(cuda, n1 * n2 + d)
+    x1 = torch.rand((n1, d), generator=g, device=cuda)
+    x1[1:1 + dup] = x1[0]
+    x2 = x1 if n1 == n2 else torch.rand((n2, d), generator=g, device=cuda)
+    assert torch.equal(gp.gp_sqdist(x1, x2), ref.gp_sqdist_ref(x1, x2))
+    for kind in ("matern52", "rbf"):
+        got = gp.gp_matrix(x1, x2, kind=kind, lengthscale=0.2, variance=1.5)
+        expect = ref.gp_matrix_ref(x1, x2, kind=kind, lengthscale=0.2,
+                                   variance=1.5)
+        assert torch.equal(got, expect), kind
+
+
+def _lower(n, g, dev):
+    a = torch.randn((n, n), generator=g, device=dev)
+    # cuSOLVER writes the factor column-major; the kernel takes rows
+    return torch.linalg.cholesky(a @ a.T / n
+                                 + torch.eye(n, device=dev)).contiguous()
+
+
+# Kernel and plain version both substitute through explicit inverses of the
+# diagonal tiles, but the kernel's tiles are 64 wide and the plain
+# version's 256, and each sums its products in its own order: on these
+# well-conditioned factors (A A^T / n + I) they agree to 1e-4 relative to
+# max |X|, and each solves to a relative residual under 1e-5.
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("n,m", [(64, 64), (256, 320), (512, 1024)])
+def test_tri_solve_kernel_matches_plain(cuda, trans, n, m):
+    g = _gen(cuda, n + m)
+    l = _lower(n, g, cuda)
+    b = torch.randn((n, m), generator=g, device=cuda)
+    got = cholesky.tri_solve_blocked(l, b, trans=trans)
+    expect = ref.tri_solve_blocked_ref(l, b, trans=trans,
+                                       block=min(n, 256))
+    scale = expect.abs().max()
+    assert ((got - expect).abs().max() / scale).item() < 1e-4
+    lt = l.T if trans else l
+    resid = torch.linalg.matrix_norm(lt @ got - b) / torch.linalg.matrix_norm(b)
+    assert resid.item() < 1e-5
 
 
 def test_calibrate_on_cuda_resumes_bitwise(cuda, tmp_path):
@@ -90,3 +149,28 @@ def test_calibrate_on_cuda_resumes_bitwise(cuda, tmp_path):
     for a, b in zip(straight.archive + straight.islands,
                     resumed.archive + resumed.islands):
         assert torch.equal(a, b)
+
+
+def test_calibrate_surrogate_on_cuda_faults_and_resume_bitwise(cuda,
+                                                               tmp_path):
+    """The surrogate through the pool on the card: a 35 %-fault run and a
+    resumed run give the clean run's history bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import explore
+    flags = dict(reduced=True, q=4, n_init=8, replicates=2,
+                 printer=lambda *_: None)
+    ops.reset_kernel_launch_counts()
+    clean, _ = explore.calibrate_surrogate(out_dir=str(tmp_path / "a"),
+                                           rounds=4, **flags)
+    assert ops.kernel_launch_counts()["gp_sqdist"] >= 2
+    faulty, _ = explore.calibrate_surrogate(out_dir=str(tmp_path / "b"),
+                                            rounds=4, fault_rate=0.35,
+                                            **flags)
+    explore.calibrate_surrogate(out_dir=str(tmp_path / "c"), rounds=3,
+                                **flags)
+    resumed, _ = explore.calibrate_surrogate(out_dir=str(tmp_path / "c"),
+                                             rounds=4, **flags)
+    assert resumed.resumed_rounds == 3
+    for other in (faulty, resumed):
+        assert (other.genomes == clean.genomes).all()
+        assert (other.objectives == clean.objectives).all()

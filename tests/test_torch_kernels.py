@@ -1,21 +1,30 @@
 """The port's kernel routing and plain versions on the CPU, against the JAX
-package's Pallas kernels run in interpret mode on the same numpy inputs.
+package's Pallas kernels run in interpret mode on the same numpy inputs;
+and the thread safety of the kernel build and launch counters.
 
 The CUDA kernels themselves are held to these plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_gpu.py``.
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.cholesky import tri_solve_blocked as jax_tri_solve  # noqa: E402
 from repro.kernels.diffusion import diffuse_evaporate as jax_diffuse  # noqa: E402
 from repro.kernels.dominance import dominance_pass as jax_dom_pass  # noqa: E402
 from repro.kernels.dominance import dominated_counts as jax_dom_counts  # noqa: E402
-from repro_torch.kernels import diffusion, dominance, ops, ref  # noqa: E402
+from repro.kernels.gp import gp_matrix as jax_gp_matrix  # noqa: E402
+from repro.kernels.gp import gp_sqdist as jax_gp_sqdist  # noqa: E402
+from repro_torch.kernels import (build, cholesky, diffusion, dominance,  # noqa: E402
+                                 gp, ops, ref)
 
 
 def _t(x):
@@ -135,6 +144,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         dominance.dominance_pass(torch.zeros((4, 3)))
     with pytest.raises(ValueError, match="CUDA"):
         dominance.dominated_counts(torch.zeros((4, 3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        gp.gp_sqdist(torch.zeros((4, 2)), torch.zeros((3, 2)))
+    with pytest.raises(ValueError, match="CUDA"):
+        gp.gp_matrix(torch.zeros((4, 2)), torch.zeros((3, 2)))
+    with pytest.raises(ValueError, match="CUDA"):
+        cholesky.tri_solve_blocked(torch.eye(64), torch.zeros((64, 64)))
 
 
 def test_cpu_routing_leaves_kernel_counts_alone():
@@ -143,5 +158,211 @@ def test_cpu_routing_leaves_kernel_counts_alone():
                           torch.zeros(2))
     ops.dominance_pass(torch.zeros((4, 3)))
     ops.dominated_counts(torch.zeros((4, 3)))
+    ops.gp_sqdist(torch.zeros((4, 2)), torch.zeros((3, 2)))
+    ops.gp_matrix(torch.zeros((4, 2)), torch.zeros((3, 2)))
+    ops.tri_solve(torch.eye(5), torch.zeros((5, 2)))
     assert ops.kernel_launch_counts() == {
-        "diffuse_evaporate": 0, "dominance_pass": 0, "dominated_counts": 0}
+        "diffuse_evaporate": 0, "dominance_pass": 0, "dominated_counts": 0,
+        "gp_sqdist": 0, "gp_matrix": 0, "tri_solve": 0}
+
+
+# ---------------------------------------------------------------------------
+# GP covariance assembly (B4)
+# ---------------------------------------------------------------------------
+GP_CASES = {
+    "square-d2": dict(n1=64, n2=None, d=2, dup=0),
+    "prime-d2": dict(n1=37, n2=53, d=2, dup=0),
+    "prime-d5": dict(n1=41, n2=29, d=5, dup=0),
+    "duplicates-d5": dict(n1=31, n2=None, d=5, dup=8),
+}
+
+
+def _gp_inputs(case):
+    c = GP_CASES[case]
+    rng = np.random.default_rng(len(case) * 7 + c["d"])
+    x1 = rng.random((c["n1"], c["d"])).astype(np.float32)
+    x1[1:1 + c["dup"]] = x1[0]            # duplicate rows: d2 = 0 exactly
+    x2 = x1 if c["n2"] is None else rng.random(
+        (c["n2"], c["d"])).astype(np.float32)
+    return x1, x2
+
+
+# The port sums over D in a fixed column order without FMA; XLA contracts
+# the reference's multiply-adds into FMAs, so where the expanded form
+# cancels (a point against itself) the reference keeps a few ulps of
+# ||x||^2 <= D, up to ~1e-6, where the port gets exactly 0. Tolerance: atol
+# 2e-6 (squared norms of unit-cube points are at most 5 here).
+@pytest.mark.parametrize("case", sorted(GP_CASES))
+def test_gp_sqdist_matches_pallas(case):
+    x1, x2 = _gp_inputs(case)
+    expect = np.asarray(jax_gp_sqdist(jnp.asarray(x1), jnp.asarray(x2),
+                                      interpret=True))
+    got = ops.gp_sqdist(_t(x1), _t(x2)).numpy()
+    np.testing.assert_allclose(got, expect, rtol=0, atol=2e-6)
+    if GP_CASES[case]["dup"]:
+        assert (got[:9, :9] == 0).all()
+
+
+# The covariance maps carry the distances' differences through: RBF moves
+# by variance * 0.5 / lengthscale^2 ~ 8.3 times a d2 difference, so the
+# reference's ~1e-6 diagonal residue (above) allows ~1e-5: atol 1e-5.
+# Matérn takes sqrt(d2): that residue becomes r ~ 3e-3 at lengthscale 0.3
+# and lowers k(x, x) by ~1.3e-5 of the variance, where the port keeps
+# exactly the variance: atol 3e-5.
+GP_MATRIX_ATOL = {"matern52": 3e-5, "rbf": 1e-5}
+
+
+@pytest.mark.parametrize("kind", ["matern52", "rbf"])
+@pytest.mark.parametrize("case", sorted(GP_CASES))
+def test_gp_matrix_matches_pallas(case, kind):
+    x1, x2 = _gp_inputs(case)
+    expect = np.asarray(jax_gp_matrix(jnp.asarray(x1), jnp.asarray(x2),
+                                      kind=kind, lengthscale=0.3,
+                                      variance=1.5, interpret=True))
+    got = ops.gp_matrix(_t(x1), _t(x2), kind=kind, lengthscale=0.3,
+                        variance=1.5).numpy()
+    np.testing.assert_allclose(got, expect, rtol=0,
+                               atol=GP_MATRIX_ATOL[kind])
+    if x2 is x1:
+        assert (np.diagonal(got) == np.float32(1.5)).all()
+
+
+def test_gp_kernel_fn_gradient_is_finite_at_zero_distance():
+    x = torch.tensor([[0.2, 0.4], [0.2, 0.4], [0.7, 0.1]], requires_grad=True)
+    k = ref.gp_kernel_fn("matern52", ref.gp_sqdist_ref(x, x), 0.2, 1.0)
+    (g,) = torch.autograd.grad(k.sum(), x)
+    assert torch.isfinite(g).all()
+    assert torch.equal(torch.diagonal(k), torch.ones(3))
+
+
+# ---------------------------------------------------------------------------
+# blocked triangular solve (B7)
+# ---------------------------------------------------------------------------
+def _lower(n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    k = a @ a.T / n + np.eye(n, dtype=np.float32)
+    return np.linalg.cholesky(k.astype(np.float64)).astype(np.float32)
+
+
+# Both sides substitute tile by tile through explicit inverses of the
+# diagonal tiles, but sum their tile products in other orders (matmul
+# order is the library's on each side): L is well conditioned here
+# (K = A A^T / n + I), so X agrees to rtol/atol 1e-5.
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("m_p", [64, 128])
+def test_tri_solve_blocked_matches_pallas(trans, m_p):
+    n_p, block = 192, 64
+    l = _lower(n_p, 5)
+    b = np.random.default_rng(11).standard_normal((n_p, m_p)).astype(
+        np.float32)
+    expect = np.asarray(jax_tri_solve(jnp.asarray(l), jnp.asarray(b),
+                                      trans=trans, block=block,
+                                      rhs_block=64, interpret=True))
+    got = ref.tri_solve_blocked_ref(_t(l), _t(b), trans=trans,
+                                    block=block).numpy()
+    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("shape", [(100, 37), (70, None)])
+def test_ops_tri_solve_pads_ragged_and_vector_rhs(trans, shape):
+    """``ops.tri_solve`` identity-pads a ragged L and zero-pads B (also a
+    vector b) to tile multiples like the reference's, then slices back."""
+    from repro.kernels import ops as jops
+    n, m = shape
+    l = _lower(n, 2)
+    rng = np.random.default_rng(n)
+    b = rng.standard_normal((n,) if m is None else (n, m)).astype(np.float32)
+    expect = np.asarray(jops.tri_solve(jnp.asarray(l), jnp.asarray(b),
+                                       trans=trans, block=64, rhs_block=64))
+    got = ops.tri_solve(_t(l), _t(b), trans=trans, block=64,
+                        rhs_block=64).numpy()
+    assert got.shape == b.shape
+    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
+    lt = l.T if trans else l
+    np.testing.assert_allclose(lt.astype(np.float64) @ got, b, atol=1e-4)
+
+
+def test_tri_solve_refuses_a_block_that_is_not_64_times_a_power_of_two():
+    with pytest.raises(ValueError, match="64"):
+        ops.tri_solve(torch.eye(4), torch.zeros(4), block=96)
+
+
+def test_tri_inv_tile_matches_reference():
+    l = _lower(128, 9)
+    expect = np.asarray(jax.jit(jref.tri_inv_tile_ref)(jnp.asarray(l)))
+    np.testing.assert_allclose(ref.tri_inv_tile_ref(_t(l)).numpy(), expect,
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# thread safety of the build and the launch counters
+# ---------------------------------------------------------------------------
+def test_load_from_eight_threads_builds_once(monkeypatch, tmp_path):
+    builds = []
+
+    def fake_build(names):
+        builds.append(tuple(names))
+        for name in names:
+            build.library_path(name).write_bytes(b"")
+        return {}
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "build", fake_build)
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        got = []
+        threads = [threading.Thread(target=lambda: got.append(
+            build.load("gp"))) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert builds == [("gp",)]
+    assert len(got) == 8 and all(g is got[0] for g in got)
+
+
+def test_launch_counter_is_exact_under_threads():
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            build.count_launch(wrapper) for _ in range(1000)])
+            for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == 8 * 1000
+
+
+def test_build_names_its_temporary_file_per_thread(monkeypatch, tmp_path):
+    seen = []
+
+    class FakePopen:
+        def __init__(self, cmd, **kw):
+            seen.append(cmd[cmd.index("-o") + 1])
+
+        def wait(self):
+            return 1
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "Popen", FakePopen)
+    with pytest.raises(RuntimeError, match="build failed"):
+        build.build(["gp"])
+    assert f"{threading.get_ident()}" in seen[0]

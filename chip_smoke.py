@@ -27,7 +27,15 @@ Phases (any failure exits non-zero):
               around it; evaluation count and front checked.
   5. surrogate  launch.explore.calibrate_surrogate(device="cuda",
               reduced=False) through the environment pool: 4 rounds of q=8
-              (2 Sobol, 2 GP), launch counts read around it.
+              (2 Sobol, 2 GP), launch counts read around it. At CONFIG every
+              evaluation returns the 1000-tick cap, in the reference as in
+              the port (tests/test_torch_surrogate.py holds the two equal
+              there): the GP rounds fit a constant objective, so this phase
+              shows that the path runs through the pool and the kernels, not
+              that the GP steers. Then the same run through a pool of one
+              worker of one slot (the same results required), and 6
+              evaluations cut to 100 ticks under torch.profiler through
+              both pools: where the pool's wall time goes.
   6. surrogate_big  a SurrogateExplorer on the card holding 50,000 told
               points of the archive benchmark's synthetic objective: a
               cold ask (the inducing-point fit: gp_sqdist and tri_solve),
@@ -93,20 +101,25 @@ def call_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(samples)
 
 
-def profiled(torch, fn, reps: int = 1):
+def profiled(torch, fn, reps: int = 1, tries: int = 3):
     """(wall ms, summed CUDA kernel time ms) of ``reps`` calls of ``fn``
-    under torch.profiler (CUPTI kernel records)."""
+    under torch.profiler (CUPTI kernel records). A window that comes back
+    with no kernel records at all (it happens now and then with short
+    windows) is run again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy_us > 0:
+            break
     return wall * 1e3, busy_us / 1e3
 
 
@@ -262,9 +275,10 @@ def main() -> int:
     results[("dominated_counts", 2048)] = r
     emit({"phase": "kernels", **r})
 
-    # B4: the surrogate's distance assembly (default run's largest history,
-    # select_lengthscale's subsample, K_mm, K_mn at 50,000), bitwise; the
-    # covariance epilogues at the K_mn shape
+    # B4: the surrogate's distance assembly (the default run's two GP fits
+    # at 16 and 24 points and its largest history, select_lengthscale's
+    # subsample, K_mm, K_mn at 50,000, and update_inducing's K_m,new for a
+    # tell of 8), bitwise; the covariance epilogues at the K_mn shape
     def points(n):
         return torch.rand((n, 2), generator=gen, device=dev)
 
@@ -272,8 +286,10 @@ def main() -> int:
         return (a.view(torch.int32).long() - b.view(torch.int32).long()) \
             .abs().max().item()
 
-    for n1, n2, kind in ((80, 80, "sqdist"), (1024, 1024, "sqdist"),
-                         (512, 512, "sqdist"), (512, 50000, "sqdist"),
+    for n1, n2, kind in ((16, 16, "sqdist"), (24, 24, "sqdist"),
+                         (80, 80, "sqdist"), (1024, 1024, "sqdist"),
+                         (512, 512, "sqdist"), (512, 8, "sqdist"),
+                         (512, 50000, "sqdist"),
                          (512, 50000, "matern52"), (512, 50000, "rbf")):
         x1 = points(n1)
         x2 = x1 if n1 == n2 else points(n2)
@@ -463,7 +479,7 @@ def main() -> int:
             printer=lambda s: emit({"phase": "surrogate", "log": s}),
             **sflags)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = wall_sur = time.perf_counter() - t0
         sur_launches = ops.kernel_launch_counts()
         files = sorted(p.name for p in Path(out).iterdir())
     n_evals = sflags["rounds"] * sflags["q"]
@@ -500,6 +516,80 @@ def main() -> int:
           "best_genome": np.asarray(res.best_genome).tolist(),
           "launches": sur_launches,
           "profile_20_ticks_3_lanes": sur_busy})
+
+    # the same run (calibrate_surrogate's configuration and objective)
+    # through one worker of one slot: the same results, and the wall time
+    # that six concurrent jobs gain or lose against one
+    serial_pool = explore.make_init_pool(0.0, workers=1, capacity=1)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serial = surrogate.run_surrogate(
+            surrogate.SurrogateConfig(bounds=explore.BOUNDS, q=sflags["q"],
+                                      n_init=sflags["n_init"], seed=0),
+            explore.ants_scalar_eval(False, sflags["replicates"]),
+            rounds=sflags["rounds"], environment=serial_pool, device="cuda")
+        torch.cuda.synchronize()
+        serial_wall = time.perf_counter() - t0
+    finally:
+        serial_pool.shutdown()
+    require(np.array_equal(serial.genomes, res.genomes)
+            and np.array_equal(serial.objectives, res.objectives),
+            "the surrogate through one slot differs from the pooled run")
+    # 6 evaluations cut to 100 ticks through each pool: the window's wall,
+    # the process's CPU time over it, each job's wall beside the CPU time of
+    # the thread that ran it (a thread blocked on the GIL or a lock burns no
+    # CPU; one spinning does), and the device's busy time (torch.profiler's
+    # CUDA records, which come from every thread)
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import Context
+    cut_eval = explore.ants_eval_fn(dataclasses.replace(CONFIG, max_ticks=100),
+                                    sflags["replicates"])
+    jobs = []
+
+    def timed_eval(g, x):
+        c0, w0 = time.thread_time(), time.perf_counter()
+        y = cut_eval(g, x)[:, 0].cpu()
+        jobs.append((time.perf_counter() - w0, time.thread_time() - c0))
+        return y
+
+    probe_task = surrogate.make_eval_task(scfg, timed_eval, device="cuda")
+    ctxs = [Context({"round": 0, "slot": i, "x": (10.0 + 15.0 * i, 40.0)})
+            for i in range(6)]
+    probes = {}
+    for workers, capacity in ((3, 2), (1, 1)):
+        pool = explore.make_init_pool(0.0, workers=workers, capacity=capacity)
+        try:
+            pool.submit(probe_task, ctxs[0])                # warm-up
+            torch.cuda.synchronize()
+            jobs.clear()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                c0, t0 = time.process_time(), time.perf_counter()
+                futs = [pool.submit_async(probe_task, c) for c in ctxs]
+                ys = [f.result()[0]["y"] for f in futs]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                cpu = time.process_time() - c0
+        finally:
+            pool.shutdown()
+        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        cpu_ops = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU]
+        probes[f"{workers}x{capacity}"] = {
+            "wall_s": wall, "process_cpu_s": cpu, "ys": ys,
+            "job_wall_s": [j[0] for j in jobs],
+            "job_thread_cpu_s": [j[1] for j in jobs],
+            "device_busy_s": busy_us / 1e6,
+            "profiled_cpu_ops": len(cpu_ops),
+            "profiled_threads": len({e.thread for e in cpu_ops})}
+    require(probes["3x2"]["ys"] == probes["1x1"]["ys"],
+            f"pool probe results differ: {probes}")
+    emit({"phase": "surrogate", "what": "pool_shape",
+          "pooled_3x2_wall_s": wall_sur, "serial_1x1_wall_s": serial_wall,
+          "results_equal": True, "probe_6_evaluations_100_ticks": probes})
 
     # -- 6. the surrogate at archive scale: 50,000 told points ---------------
     def synthetic(x):       # the archive benchmark's objective

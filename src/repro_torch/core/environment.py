@@ -17,7 +17,7 @@ import concurrent.futures as cf
 import dataclasses
 import threading
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.faults import (FaultSpec, InjectedFailure, ResultCorruption,
                                corrupt_output, interruptible_sleep)
@@ -382,29 +382,11 @@ class Environment:
         raise RuntimeError(f"all speculative copies of {task.name} failed") \
             from err
 
-    # -- vectorized exploration ------------------------------------------------
-    def map_explore(self, task: Task, contexts: Sequence[Context]):
-        """Run one task over many contexts (an exploration fan-out).
-
-        Args:
-            task: the Task to evaluate at every point.
-            contexts: input Contexts, one per design-of-experiments point.
-
-        Returns:
-            A list of output Contexts in the same order, run one by one.
-        """
-        return [self.submit(task, c) for c in contexts]
-
     def jit(self, fn, **kw):
         """The identity: PyTorch runs eagerly, so there is nothing to
         compile (kept so that callers written for the reference's
         interface run unchanged)."""
         return fn
-
-    @property
-    def mesh(self):
-        """The device mesh backing this environment (None: thread-backed)."""
-        return None
 
     def __repr__(self):
         return f"{type(self).__name__}()"

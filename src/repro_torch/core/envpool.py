@@ -15,27 +15,23 @@ whatever environments are attached. This module is that layer:
 - **Oversubmission / speculation**: ``speculative=k`` dispatches duplicate
   attempts of one job to ``k`` distinct members simultaneously; the first
   verified result wins and the losers are cancelled (EGI's over-submission
-  trick). ``map_explore`` additionally duplicates straggler *lanes* onto
-  idle members once the queue drains.
-- **Work stealing**: ``map_explore`` splits an exploration into lanes,
-  deals them to per-member deques weighted by capacity, and lets idle
-  members steal queued lanes from the busiest member — lanes flow to
-  whichever environment drains fastest, no central coordinator.
+  trick).
+- **Load balancing**: each job goes to the member with the most free slots,
+  then the fastest drain rate.
 - **Integrity**: when faults are active each attempt carries a source-side
   output fingerprint; the pool re-verifies on receipt and treats
   mismatches (in-transit corruption) as one more transient failure.
 
-The pool implements the full Environment interface (``submit``,
-``submit_traced``, ``submit_async``, ``map_explore``, ``jit``, ``mesh``,
-``name``, ``stats``) so every caller of a single environment (the
-surrogate's ask/tell loop among them) accepts it in its place. With one
+The pool implements the job interface of an Environment (``submit``,
+``submit_traced``, ``submit_async``, ``name``, ``stats``) so every caller of
+a single environment (the surrogate's ask/tell loop among them) accepts it
+in its place. With one
 healthy member and no faults the results are bit-identical to that member
 alone: members differ only in *where* a pure task runs, never in what it
 returns.
 """
 from __future__ import annotations
 
-import collections
 import concurrent.futures as cf
 import dataclasses
 import threading
@@ -54,8 +50,7 @@ class PoolStats:
     member's own ``EnvStats``).
 
     Every mutation goes through :meth:`inc` under ONE internal lock, so
-    ``map_explore`` and ``submit_traced`` running at once lose no
-    increments. The invariant a consistent snapshot obeys:
+    concurrent ``submit_traced`` calls lose no increments. The invariant a consistent snapshot obeys:
 
         submitted == completed + failed + in_flight
     """
@@ -66,7 +61,6 @@ class PoolStats:
     resubmissions: int = 0        # cross-member retries consumed
     speculative_wins: int = 0     # duplicate dispatches whose copy won
     speculative_losses: int = 0   # duplicates whose result was discarded
-    lanes_stolen: int = 0         # map_explore lanes stolen by idle members
     failed_attempts: int = 0
     hung_attempts: int = 0
     corrupt_attempts: int = 0
@@ -126,23 +120,18 @@ class EnvironmentPool:
         backoff_s: base exponential backoff between resubmissions.
         speculative: >1 duplicates each PyTask job onto that many distinct
             members, first verified result wins.
-        lane_size: contexts per ``map_explore`` lane (default: sized so
-            every member slot gets ~2 lanes — small enough to balance,
-            large enough to amortize dispatch).
         name: pool name in provenance records.
     """
 
     def __init__(self, environments: Sequence[Environment], *,
                  retries: int = 4, backoff_s: float = 0.05,
-                 speculative: int = 1, lane_size: Optional[int] = None,
-                 name: str = "pool"):
+                 speculative: int = 1, name: str = "pool"):
         if not environments:
             raise ValueError("EnvironmentPool needs at least one environment")
         self.name = name
         self.retries = retries
         self.backoff_s = backoff_s
         self.speculative = max(1, speculative)
-        self.lane_size = lane_size
         self.stats = PoolStats()
         self._lock = threading.Lock()
         seen: Dict[str, int] = {}
@@ -333,200 +322,6 @@ class EnvironmentPool:
                     max_workers=max(2, self.total_capacity),
                     thread_name_prefix=f"repro-{self.name}-dispatch")
         return self._dispatch_pool.submit(self.submit_traced, task, context)
-
-    # --------------------------------------------------------------- fan-outs
-    def map_explore(self, task: Task, contexts: Sequence[Context]
-                    ) -> List[Context]:
-        """Run one task over many contexts via lane-based work stealing.
-
-        The contexts split into lanes; lanes are dealt to per-member deques
-        proportionally to capacity; every member slot runs a worker that
-        drains its own deque, then steals from the busiest other deque,
-        then (speculation) duplicates the oldest unfinished lane. Failed
-        lanes are requeued on another member with backoff. Results are
-        assembled by lane index, so the output order — and, tasks being
-        pure, the output *values* — are independent of the dispatch
-        schedule: bit-exact vs. any single member and vs. the serial path.
-
-        Reentrant: ALL lane state (deques included) is local to this call,
-        so any number of concurrent ``map_explore`` fan-outs may share one
-        pool — they contend only for member capacity, never for each
-        other's lanes.
-        """
-        contexts = list(contexts)
-        if not contexts:
-            return []
-        n = len(contexts)
-        lane_size = self.lane_size or max(
-            1, -(-n // (2 * self.total_capacity)))
-        lanes = [(i, contexts[lo:lo + lane_size])
-                 for i, lo in enumerate(range(0, n, lane_size))]
-        n_lanes = len(lanes)
-
-        results: List[Optional[List[Context]]] = [None] * n_lanes
-        lane_attempts = [0] * n_lanes
-        lane_running: List[int] = [0] * n_lanes
-        lane_banned: List[set] = [set() for _ in range(n_lanes)]
-        lane_err: List[Optional[BaseException]] = [None] * n_lanes
-        done = [0]
-        ctx_done = [0]
-        fatal: List[BaseException] = []
-        cond = threading.Condition()
-        self.stats.inc(submitted=n, in_flight=n)
-
-        # per-CALL deques: this fan-out's lanes are invisible to any other
-        # concurrent fan-out sharing the pool
-        deques: Dict[_Member, collections.deque] = \
-            {m: collections.deque() for m in self.members}
-        # deal proportionally to capacity, round-robin over slots
-        slots = [m for m in self.members for _ in range(m.capacity)]
-        for i, lane in enumerate(lanes):
-            deques[slots[i % len(slots)]].append(lane)
-
-        def run_lane(m: _Member, lane, stolen: bool, speculated: bool):
-            idx, ctxs = lane
-            try:
-                outs = [self._attempt_on(m, task, c, lane_attempts[idx],
-                                         {"attempts": []}) for c in ctxs]
-                ok = True
-            except TaskError as e:
-                with cond:
-                    # lane_running gates speculative duplication
-                    # (lane_running[i] < self.speculative): every exit path
-                    # must undo the worker's increment or the slot leaks.
-                    lane_running[idx] -= 1
-                    fatal.append(e)
-                    cond.notify_all()
-                return
-            except Exception as e:
-                ok = False
-                lane_err[idx] = e
-            with cond:
-                lane_running[idx] -= 1
-                if ok:
-                    if results[idx] is None:
-                        results[idx] = outs
-                        done[0] += 1
-                        ctx_done[0] += len(outs)
-                        self.stats.inc(completed=len(outs),
-                                       in_flight=-len(outs))
-                        if speculated:
-                            self.stats.inc(speculative_wins=1)
-                        if stolen:
-                            self.stats.inc(lanes_stolen=1)
-                    elif speculated:
-                        self.stats.inc(speculative_losses=1)
-                else:
-                    lane_attempts[idx] += 1
-                    # deprioritize the member that just failed this lane
-                    lane_banned[idx].add(m.name)
-                    if len(lane_banned[idx]) >= len(self.members):
-                        lane_banned[idx].clear()   # all failed once: forgive
-                    if lane_attempts[idx] > self.retries:
-                        fatal.append(RuntimeError(
-                            f"lane {idx} of {task.name} failed after "
-                            f"{lane_attempts[idx]} attempts: {lane_err[idx]}"))
-                    elif results[idx] is None:
-                        # requeue on the least-loaded non-banned member
-                        self.stats.inc(resubmissions=1)
-                        cands = [o for o in self.members
-                                 if o.name not in lane_banned[idx]] \
-                            or [o for o in self.members if o is not m] or [m]
-                        target = min(
-                            cands,
-                            key=lambda o: len(deques[o]) + o.inflight)
-                        deques[target].append(lanes[idx])
-                cond.notify_all()
-
-        def worker(m: _Member):
-            while True:
-                lane = None
-                stolen = speculated = False
-                with cond:
-                    if fatal or done[0] == n_lanes:
-                        return
-                    if deques[m]:
-                        lane = deques[m].popleft()
-                    else:
-                        victim = max((o for o in self.members
-                                      if o is not m and any(
-                                          m.name not in lane_banned[ln[0]]
-                                          for ln in deques[o])),
-                                     key=lambda o: len(deques[o]),
-                                     default=None)
-                        if victim is not None:
-                            # steal the newest lane this member may run
-                            for ln in reversed(deques[victim]):
-                                if m.name not in lane_banned[ln[0]]:
-                                    deques[victim].remove(ln)
-                                    lane = ln
-                                    stolen = True
-                                    break
-                        elif self.speculative > 1:
-                            # duplicate the oldest unfinished lane
-                            pending = [i for i in range(n_lanes)
-                                       if results[i] is None
-                                       and lane_running[i] > 0
-                                       and lane_running[i] < self.speculative]
-                            if pending:
-                                lane = lanes[pending[0]]
-                                speculated = True
-                    if lane is None:
-                        if done[0] == n_lanes or fatal:
-                            return
-                        cond.wait(timeout=0.02)
-                        continue
-                    if results[lane[0]] is not None:
-                        continue            # won while queued
-                    if (m.name in lane_banned[lane[0]]
-                            and len(lane_banned[lane[0]]) < len(self.members)):
-                        # this member already failed this lane: hand it to a
-                        # member that hasn't, rather than burning an attempt
-                        cands = [o for o in self.members
-                                 if o.name not in lane_banned[lane[0]]]
-                        target = min(
-                            cands,
-                            key=lambda o: len(deques[o]) + o.inflight)
-                        deques[target].append(lane)
-                        cond.notify_all()
-                        continue
-                    lane_running[lane[0]] += 1
-                run_lane(m, lane, stolen, speculated)
-
-        threads = []
-        for m in self.members:
-            for _ in range(m.capacity):
-                t = threading.Thread(target=worker, args=(m,), daemon=True)
-                t.start()
-                threads.append(t)
-        with cond:
-            while done[0] < n_lanes and not fatal:
-                cond.wait(timeout=0.1)
-        for m in self.members:              # wake injected-hang stragglers
-            m.env.release_hangs()
-        if fatal:
-            # contexts never completed are no longer in flight: failed
-            left = n - ctx_done[0]
-            if left:
-                self.stats.inc(failed=left, in_flight=-left)
-            raise fatal[0]
-        out: List[Context] = []
-        for r in results:
-            out.extend(r)                   # type: ignore[arg-type]
-        return out
-
-    # ----------------------------------------------------------- environment
-    def jit(self, fn, **kw):
-        """The pool's primary (first) member's ``jit`` (the identity for
-        thread-backed members)."""
-        return self.members[0].env.jit(fn, **kw)
-
-    @property
-    def mesh(self):
-        for m in self.members:
-            if m.env.mesh is not None:
-                return m.env.mesh
-        return None
 
     def shutdown(self) -> None:
         """Release hangs and tear down member executors (tests/benches)."""

@@ -1,5 +1,5 @@
 """The port's environment layer on the CPU: fault injection, retries,
-timeouts, corruption checks, speculation and work stealing of
+timeouts, corruption checks, speculation and load balancing of
 ``LocalEnvironment`` and ``EnvironmentPool``; their decisions and digests
 against the JAX package's; and the accounting invariant
 ``submitted == completed + failed + hung + corrupted`` of every member."""
@@ -168,16 +168,21 @@ def test_pool_async_jobs_bit_exact_under_failures(rate):
         pool.shutdown()
 
 
-def test_pool_map_explore_bit_exact_under_30pct_failures():
+def test_pool_async_jobs_on_heterogeneous_members_bit_exact():
+    """Members of capacities 1, 2 and 3, each failing 30 % of attempts: every
+    job returns what one clean environment returns, and each failed attempt
+    is resubmitted."""
     ctxs = [Context(x=float(i)) for i in range(48)]
-    expect = [c["y"] for c in LocalEnvironment().map_explore(SQ, ctxs)]
-    envs = [LocalEnvironment(name=f"w{i}", capacity=2,
+    expect = [LocalEnvironment().submit(SQ, c)["y"] for c in ctxs]
+    envs = [LocalEnvironment(name=f"w{i}", capacity=i + 1,
                              faults=FaultSpec(fail_rate=0.3, seed=i))
-            for i in range(2)] + [LocalEnvironment(name="stable", capacity=2)]
-    pool = make_pool(*envs, retries=6, lane_size=4)
+            for i in range(3)]
+    pool = make_pool(*envs, retries=6)
     try:
-        assert [c["y"] for c in pool.map_explore(SQ, ctxs)] == expect
+        futs = [pool.submit_async(SQ, c) for c in ctxs]
+        assert [f.result(timeout=60)[0]["y"] for f in futs] == expect
         assert pool.stats.completed == len(ctxs)
+        assert pool.stats.resubmissions == pool.stats.failed_attempts > 0
         assert_member_invariant(pool)
     finally:
         pool.shutdown()

@@ -19,6 +19,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs.ants_netlogo import CONFIG as J_CONFIG  # noqa: E402
 from repro.configs.ants_netlogo import REDUCED as J_REDUCED  # noqa: E402
 from repro.explore import bigfit as jbig  # noqa: E402
 from repro.explore import surrogate as jsur  # noqa: E402
@@ -26,7 +27,7 @@ from repro.explore.sampling import _sobol_points as j_sobol  # noqa: E402
 from repro.launch import explore as jexplore  # noqa: E402
 from repro_torch import checkpoint  # noqa: E402
 from repro_torch.ants import model  # noqa: E402
-from repro_torch.configs.ants_netlogo import REDUCED  # noqa: E402
+from repro_torch.configs.ants_netlogo import CONFIG, REDUCED  # noqa: E402
 from repro_torch.explore import bigfit as tbig  # noqa: E402
 from repro_torch.explore import surrogate as tsur  # noqa: E402
 from repro_torch.explore.sampling import _sobol_points as t_sobol  # noqa: E402
@@ -455,6 +456,24 @@ def test_pool_run_with_faults_is_bit_exact_with_the_clean_run(tmp_path):
     np.testing.assert_array_equal(faulty.objectives, clean.objectives)
 
 
+
+@pytest.mark.parametrize("workers,capacity", [(1, 1), (2, 3)])
+def test_pool_shape_does_not_change_the_run(workers, capacity):
+    """The pool's shape changes where and when jobs run, never what the run
+    asks or gets back."""
+    _, tcfg = _cfgs(q=4, n_init=8)
+    clean = tsur.run_surrogate(tcfg, _quadratic_eval, rounds=3,
+                               device="cpu")
+    pool = explore.make_init_pool(0.0, workers=workers, capacity=capacity)
+    try:
+        pooled = tsur.run_surrogate(tcfg, _quadratic_eval, rounds=3,
+                                    environment=pool, device="cpu")
+    finally:
+        pool.shutdown()
+    assert pooled.attempts == 12
+    np.testing.assert_array_equal(pooled.genomes, clean.genomes)
+    np.testing.assert_array_equal(pooled.objectives, clean.objectives)
+
 def test_checkpoint_resume_is_bit_exact(tmp_path):
     _, tcfg = _cfgs(q=4, n_init=8)
     straight = tsur.run_surrogate(tcfg, _quadratic_eval, rounds=4,
@@ -533,6 +552,31 @@ def test_ants_scalar_eval_with_the_reference_gumbel_stream(monkeypatch):
     np.testing.assert_array_equal(got, expect)
     assert (expect < REDUCED.max_ticks).any()
 
+
+
+def test_ants_scalar_eval_at_config_with_the_reference_gumbel_stream(
+        monkeypatch):
+    """At the paper's model size (CONFIG), on the first four Sobol genomes
+    of a default surrogate run, 3 replicates each: the port's ticks equal
+    the reference's. Both return the 1000-tick cap for every genome: at
+    CONFIG the nearest food source does not empty within the horizon, so a
+    surrogate run there fits a constant objective in either package."""
+    genomes = (t_sobol(16, 2, 0)[:4] * 99.0).astype(np.float32)
+    keys = jax.random.split(jax.random.key(3), len(genomes))
+    reps = 3
+    expect = np.asarray(jax.jit(jexplore.ants_scalar_eval(False, reps))(
+        keys, jnp.asarray(genomes)))
+    flat_keys = jax.vmap(lambda k: jax.random.split(k, reps))(keys).reshape(
+        len(genomes) * reps)
+    noise = _t(jax.jit(_replayed_gumbel, static_argnums=(1, 2))(
+        flat_keys, J_CONFIG.max_ticks, J_CONFIG.population))
+    monkeypatch.setattr(
+        explore, "simulate_batch",
+        lambda cfg, d, e, generator: model.simulate_batch(cfg, d, e,
+                                                          noise=noise))
+    got = explore.ants_scalar_eval(False, reps)(None, _t(genomes)).numpy()
+    np.testing.assert_array_equal(got, expect)
+    assert (expect == CONFIG.max_ticks).all()
 
 CLI = ["--method", "surrogate", "--device", "cpu", "--reduced", "--q", "4",
        "--n-init", "4", "--replicates", "1"]

@@ -12,13 +12,18 @@ Phases (any failure exits non-zero):
   2. kernels  each kernel against its plain version at the main paths'
               shapes, dominance also with the +BIG rows that ranking
               writes for empty slots (diffusion and the GP assembly
-              bitwise, dominance equal, the triangular solve within a
-              stated tolerance). "ms" is the kernel's time on the card
-              (torch.profiler's CUDA kernel records), beside its plain
-              version's and, where one PyTorch call computes the same
-              thing, that call's; "call_ms" is the
-              per-call time of back-to-back calls between CUDA events,
-              which the host's launch cost sets for small kernels.
+              bitwise, dominance equal, the triangular solve and the
+              blocked Cholesky within stated tolerances, the fused
+              assemble-and-factor bitwise equal to the blocked Cholesky of
+              the plainly assembled matrix). "ms" is the kernel's time on
+              the card (torch.profiler's CUDA kernel records), beside its
+              plain version's and, where one PyTorch call computes the
+              same thing, that call's; "call_ms" is the per-call time of
+              back-to-back calls between CUDA events, which the host's
+              launch cost sets for small kernels. For the blocked
+              Cholesky, a chain of 3 launches per 64-wide step, "ms" is
+              the wrapper's time between CUDA events (the gaps between
+              its launches included) and "kernel_ms" the profiler's sum.
   3. parity   simulate_batch on the card against the CPU plain path, same
               Gumbel noise, REDUCED config: first-empty ticks equal; and
               gp_fit on the card against the CPU plain path at n = 80.
@@ -42,7 +47,15 @@ Phases (any failure exits non-zero):
               a tell of 8, a warm ask; launch counts read around it.
   7. chunk    one replicated_batch(simulate_batch) chunk at CONFIG:
               4096 genomes x 5 replicates = 20480 lanes.
-  8. the kernels line, the card's name and power limit, and the last line
+  8. gp_chol  the archive-scale GP factorization of the reference's
+              bench_gp_chol at full size: 4096 points in 8 dimensions,
+              Matern-5/2, nugget 1e-4, block 512, five lengthscales, one
+              ops.gp_chol each (the fused kernel), then the same sweep
+              assembled by ops.gp_matrix and factored by ops.chol_factor
+              (bitwise the same factors required); each factor within 2e-4
+              of cuSOLVER's of the assembled matrix; launch counts read
+              around both sweeps.
+  9. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -81,11 +94,12 @@ def bound_ms(n_bytes: float, n_ops: float):
                                        else "operations")
 
 
-def call_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
+def call_ms(torch, fn, reps: int = 15, inner: int = 10,
+            warmup: int = 3) -> float:
     """Per-call time seen by a caller: median over ``reps`` samples of
     ``inner`` back-to-back calls between two CUDA events, after a warm-up.
     For a small kernel this is the host's launch cost, not the card's."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     samples = []
@@ -102,10 +116,11 @@ def call_ms(torch, fn, reps: int = 15, inner: int = 10) -> float:
 
 
 def profiled(torch, fn, reps: int = 1, tries: int = 3):
-    """(wall ms, summed CUDA kernel time ms) of ``reps`` calls of ``fn``
-    under torch.profiler (CUPTI kernel records). A window that comes back
-    with no kernel records at all (it happens now and then with short
-    windows) is run again, up to ``tries`` times."""
+    """(wall ms, summed CUDA kernel time ms, {kernel name: summed ms}) of
+    ``reps`` calls of ``fn`` under torch.profiler (CUPTI kernel records;
+    names without namespace, template or argument list). A window that
+    comes back with no kernel records at all (it happens now and then with
+    short windows) is run again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
         torch.cuda.synchronize()
@@ -116,27 +131,39 @@ def profiled(torch, fn, reps: int = 1, tries: int = 3):
                 fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
-        if busy_us > 0:
+        by_kernel = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].split("<")[0].split("::")[-1]
+                name = name.split()[-1]
+                by_kernel[name] = by_kernel.get(name, 0.0) \
+                    + e.self_device_time_total / 1e3
+        busy_ms = sum(by_kernel.values())
+        if busy_ms > 0:
             break
-    return wall * 1e3, busy_us / 1e3
+    return wall * 1e3, busy_ms, by_kernel
 
 
-def device_ms(torch, fn, reps: int = 20) -> float:
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Time on the card per call of ``fn``: the summed time of the CUDA
     kernels it launches, averaged over ``reps`` calls after a warm-up."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     busy = profiled(torch, fn, reps)[1]
     require(busy > 0, "the profiler recorded no device time")
     return busy / reps
 
 
+def within(got, want, tol: float) -> bool:
+    """|got - want| <= tol + tol * |want| everywhere (rtol = atol = tol)."""
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
 def device_busy_share(torch, fn) -> dict:
     """Run ``fn`` once under torch.profiler: the summed device time of the
     CUDA kernels over the wall time of the window."""
-    wall, busy = profiled(torch, fn)
+    wall, busy, _ = profiled(torch, fn)
     return {"window_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall)}
 
@@ -161,6 +188,12 @@ def main() -> int:
     from repro_torch.launch import explore
 
     t_start = time.monotonic()
+
+    def stamp():
+        """A line with the seconds since the start: where the script's time
+        limit goes."""
+        emit({"elapsed_s": time.monotonic() - t_start})
+
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -323,14 +356,124 @@ def main() -> int:
         results[(name, kind, n1, n2)] = r
         emit({"phase": "kernels", **r})
 
+    # B5: the blocked Cholesky on A A^T / n + I at gp_chol's size (4096,
+    # block 512), padded from 4000, and at the reference's interpret-mode
+    # check size (83 -> 128, block 64); the kernel on the identity-padded
+    # matrix that ops.chol_factor hands it. Kernel (64-wide tiles,
+    # right-looking) and plain version (block-wide tiles, left-looking,
+    # recursive tile factor) sum in other orders: held to rtol = atol =
+    # 2e-4, the reference bench's tolerance between two algorithms for one
+    # factor (benchmarks/run.py:593-595), and to a relative residual
+    # |L L^T - A|_F / |A|_F under 1e-4.
+    def spd(n):
+        a = torch.randn((n, n), generator=gen, device=dev)
+        return a @ a.T / n + torch.eye(n, device=dev)
+
+    def padded(a, n_p):
+        ap = torch.eye(n_p, device=dev)
+        ap[:a.shape[0], :a.shape[0]] = a
+        return ap
+
+    def residual(l, a):
+        return (torch.linalg.matrix_norm(l @ l.T - a)
+                / torch.linalg.matrix_norm(a)).item()
+
+    chol_tol = {"rtol": 2e-4, "atol": 2e-4, "residual": 1e-4}
+    for n, block in ((4096, 512), (4000, 512), (83, 64)):
+        n_p = -(-n // block) * block
+        a = spd(n)
+        ap = padded(a, n_p)
+        run = lambda: cholesky.chol_blocked(ap)                  # noqa: E731
+        plain = lambda: ref.chol_blocked_ref(ap, block=block)    # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        resid = residual(got[:n, :n], a)
+        require(within(got, want, 2e-4) and resid < 1e-4
+                and torch.equal(got[n:, n:], torch.eye(n_p - n, device=dev))
+                and not got[n:, :n].any() and not got.triu(1).any(),
+                f"chol_blocked at ({n}, block {block}): max abs err {err}, "
+                f"residual {resid}")
+        b_ms, b_by = bound_ms(2 * n_p * n_p * 4, n_p ** 3 / 3)
+        r = {"kernel": "chol_blocked", "shape": [n, n], "padded": n_p,
+             "block": block, "max_abs_err": err, "residual": resid,
+             "tolerance": chol_tol, "timed_by": "cuda_events",
+             "ms": call_ms(torch, run, reps=5, inner=3),
+             "kernel_ms": device_ms(torch, run, reps=5),
+             "call_ms": call_ms(torch, lambda: ops.chol_factor(
+                 a, block=block), reps=5, inner=3),
+             "plain_ms": call_ms(torch, plain, reps=1, inner=1, warmup=0),
+             # cuSOLVER potrf; cholesky_ex skips the check that would
+             # copy its status to the host after every call
+             "library_ms": call_ms(torch, lambda: torch.linalg.cholesky_ex(
+                 ap), reps=5, inner=3),
+             "bound_ms": b_ms, "bound_by": b_by}
+        if n == 4096:
+            # where the factor's time goes: diag / panel / trailing steps
+            r["kernel_breakdown_ms"] = {
+                k: v / 5 for k, v in profiled(torch, run, reps=5)[2].items()}
+        results[("chol_blocked", n)] = r
+        emit({"phase": "kernels", **r})
+
+    # B6: the fused assembly and factorization at the same sizes, 8
+    # dimensions, both kinds: bitwise equal to B5's factor of the matrix
+    # assembled tile by tile with the plain gp_tile_ref (the fused kernel
+    # assembles in B4's arithmetic order), and within 2e-4 of the fused
+    # plain version
+    for n, block in ((4096, 512), (4000, 512), (83, 64)):
+        n_p = -(-n // block) * block
+        xp = torch.zeros((n_p, 8), device=dev)
+        xp[:n] = torch.rand((n, 8), generator=gen, device=dev)
+        for kind in ("matern52", "rbf"):
+            kw = dict(kind=kind, lengthscale=0.2, nugget=1e-4)
+            run = lambda: cholesky.gp_chol_blocked(  # noqa: E731
+                xp, n, **kw)
+            plain = lambda: ref.gp_chol_blocked_ref(  # noqa: E731
+                xp, n, block=block, **kw)
+            k = ref.gp_tile_ref(xp, xp, 0, 0, n, **kw)
+            got, want, unfused = run(), plain(), cholesky.chol_blocked(k)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            resid = residual(got[:n, :n], k[:n, :n])
+            require(torch.equal(got, unfused),
+                    f"gp_chol_blocked({kind}) at ({n}, 8) differs from "
+                    f"chol_blocked of the plainly assembled matrix in "
+                    f"{int((got != unfused).sum())} entries")
+            require(within(got, want, 2e-4) and resid < 1e-4,
+                    f"gp_chol_blocked({kind}) at ({n}, 8): max abs err "
+                    f"{err}, residual {resid}")
+            # per lower element: 2 x 8 multiply-adds, the distance's 3
+            # operations, the epilogue (Matern 9, RBF 4), the nugget add
+            assembly_ops = n_p * (n_p + 1) / 2 * (
+                2 * 8 + 3 + (9 if kind == "matern52" else 4) + 1)
+            b_ms, b_by = bound_ms(n_p * 8 * 4 + n_p * n_p * 4,
+                                  n_p ** 3 / 3 + assembly_ops)
+            r = {"kernel": "gp_chol_blocked", "kind": kind,
+                 "shape": [n, 8], "padded": n_p, "block": block,
+                 "bitwise_vs_chol_blocked": True, "max_abs_err": err,
+                 "residual": resid, "tolerance": chol_tol,
+                 "timed_by": "cuda_events",
+                 "ms": call_ms(torch, run, reps=5, inner=3),
+                 "kernel_ms": device_ms(torch, run, reps=5),
+                 "call_ms": call_ms(torch, lambda: ops.gp_chol(
+                     xp[:n], block=block, **kw), reps=5, inner=3),
+                 "plain_ms": call_ms(torch, plain, reps=1, inner=1,
+                                     warmup=0),
+                 # cuSOLVER potrf of the assembled matrix, the assembly
+                 # not included
+                 "library_ms": call_ms(
+                     torch, lambda: torch.linalg.cholesky_ex(k), reps=5,
+                     inner=3),
+                 "library_includes_assembly": False,
+                 "bound_ms": b_ms, "bound_by": b_by}
+            results[("gp_chol_blocked", kind, n)] = r
+            emit({"phase": "kernels", **r})
+
     # B7: the inducing fit's forward solve L_m A = K_mn at (512, 50,000),
     # and a backward solve; the kernel on the tile-padded operands that
-    # ops.tri_solve hands it
+    # ops.tri_solve hands it; the factors from the port's own chol_factor
     def lower(n):
-        a = torch.randn((n, n), generator=gen, device=dev)
-        # cuSOLVER writes the factor column-major; the kernel takes rows
-        return torch.linalg.cholesky(a @ a.T / n
-                                     + torch.eye(n, device=dev)).contiguous()
+        return ops.chol_factor(spd(n))
 
     for n, m, trans in ((512, 50000, False), (512, 2048, True)):
         l = lower(n)
@@ -373,6 +516,8 @@ def main() -> int:
              "bound_ms": b_ms, "bound_by": b_by}
         results[("tri_solve", trans, n, m)] = r
         emit({"phase": "kernels", **r})
+
+    stamp()
 
     # -- 3. the card against the CPU plain path on a small input -------------
     rates = torch.tensor([10.0, 30.0, 50.0, 70.0, 90.0, 20.0, 60.0, 95.0])
@@ -421,6 +566,8 @@ def main() -> int:
           "alpha_rel_err": alpha_err, "posterior_mean_max_abs_err": mean_err,
           "tolerance": {"chol": 1e-3, "alpha_rel": 1e-2, "mean": 1e-3}})
 
+    stamp()
+
     # -- 4. the main path: calibrate at the paper's model size ---------------
     flags = dict(n_islands=8, mu=16, lam=16, steps_per_epoch=4, epochs=2,
                  replicates=5, archive_size=256, merge_top_k=8)
@@ -467,6 +614,8 @@ def main() -> int:
           "profile_20_ticks_640_lanes": cal_busy})
 
     cal_launches = launches
+
+    stamp()
 
     # -- 5. the surrogate path at the paper's model size ----------------------
     sflags = dict(rounds=4, q=8, n_init=16, replicates=3)
@@ -591,6 +740,8 @@ def main() -> int:
           "pooled_3x2_wall_s": wall_sur, "serial_1x1_wall_s": serial_wall,
           "results_equal": True, "probe_6_evaluations_100_ticks": probes})
 
+    stamp()
+
     # -- 6. the surrogate at archive scale: 50,000 told points ---------------
     def synthetic(x):       # the archive benchmark's objective
         return ((x[:, 0] - 0.3) ** 2 + (x[:, 1] - 0.7) ** 2
@@ -642,6 +793,8 @@ def main() -> int:
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "launches": big_launches})
 
+    stamp()
+
     # -- 7. one chunk of the streaming init ---------------------------------
     genomes = torch.rand((4096, 2), generator=gen, device=dev) * 99
     eval_fn = explore.ants_eval_fn(CONFIG, 5)
@@ -666,11 +819,93 @@ def main() -> int:
           "launches": ops.kernel_launch_counts(),
           "profile_20_ticks_20480_lanes": chunk_busy})
 
-    # -- 8. the kernels line, the card, the contract line --------------------
+    stamp()
+
+    # -- 8. the archive-scale GP factorization: bench_gp_chol at full size ---
+    n_gp, block = 4096, 512
+    grid = (0.05, 0.1, 0.2, 0.4, 0.8)
+    gkw = dict(kind="matern52", nugget=1e-4)
+    x = torch.rand((n_gp, 8), generator=gen, device=dev)
+    ops.gp_chol(x, lengthscale=grid[0], block=block, **gkw)   # warm-up
+    ops.reset_kernel_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fused = [ops.gp_chol(x, lengthscale=ls, block=block, **gkw)
+             for ls in grid]
+    torch.cuda.synchronize()
+    sweep_wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    # the same sweep unfused: B4 assembles K, the nugget goes on the
+    # diagonal, B5 factors it
+    t0 = time.perf_counter()
+    unfused = []
+    for ls in grid:
+        k = ops.gp_matrix(x, x, kind=gkw["kind"], lengthscale=ls)
+        k.diagonal().add_(gkw["nugget"])
+        unfused.append(ops.chol_factor(k, block=block))
+    torch.cuda.synchronize()
+    unfused_wall = time.perf_counter() - t0
+    gp_launches = ops.kernel_launch_counts()
+    differ = [int((f != u).sum()) for f, u in zip(fused, unfused)]
+    require(not any(differ), f"gp_chol and gp_matrix + chol_factor differ "
+            f"in {differ} entries at lengthscales {grid}")
+    del k, unfused
+    per_factor_ms = []
+    for ls in grid:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ops.gp_chol(x, lengthscale=ls, block=block, **gkw)
+        end.record()
+        end.synchronize()
+        per_factor_ms.append(start.elapsed_time(end))
+    gp_busy = device_busy_share(torch, lambda: [
+        ops.gp_chol(x, lengthscale=ls, block=block, **gkw) for ls in grid])
+
+    # the reference bench's lapack_sweep: the assembled (5, n, n) stack and
+    # one batched potrf (cuSOLVER); never called by the port
+    def library_sweep():
+        d2 = ref.gp_sqdist_ref(x, x)
+        ls = torch.tensor(grid, device=dev)[:, None, None]
+        ks = ref.gp_kernel_fn(gkw["kind"], d2, ls, 1.0) \
+            + gkw["nugget"] * torch.eye(n_gp, device=dev)
+        return torch.linalg.cholesky_ex(ks).L
+
+    lib = library_sweep()
+    torch.cuda.synchronize()
+    errs = [(f - lf).abs().max().item() for f, lf in zip(fused, lib)]
+    fused_ok = [within(f, lf, 2e-4) for f, lf in zip(fused, lib)]
+    require(all(fused_ok), f"gp_chol against cuSOLVER (rtol = atol = 2e-4): "
+            f"max abs errs {errs} at lengthscales {grid}")
+    for f in fused:
+        require(tuple(f.shape) == (n_gp, n_gp)
+                and bool(torch.isfinite(f).all()), "gp_chol factor finite")
+    require(gp_launches["gp_chol_blocked"] == len(grid)
+            and gp_launches["chol_blocked"] == len(grid)
+            and gp_launches["gp_matrix"] == len(grid),
+            f"gp_chol launches {gp_launches}")
+    del lib
+    library_ms = call_ms(torch, library_sweep, reps=3, inner=1, warmup=1)
+    emit({"phase": "gp_chol", "n": n_gp, "d": 8, "block": block,
+          "kind": gkw["kind"], "nugget": gkw["nugget"], "lengthscales": grid,
+          "sweep_wall_ms": sweep_wall * 1e3,
+          "unfused_sweep_wall_ms": unfused_wall * 1e3,
+          "fused_equals_unfused": True, "per_factor_ms": per_factor_ms,
+          "library_sweep_ms": library_ms,
+          "max_abs_err_vs_library": errs, "tolerance": 2e-4,
+          "sweep_peak_memory_gb": peak / 1e9,
+          "memory_before_gb": base / 1e9, "launches": gp_launches,
+          "profile_sweep": gp_busy})
+
+    stamp()
+
+    # -- 9. the kernels line, the card, the contract line --------------------
     # (kernel, result key, source, TPU kernel, the path whose run gives the
     # launches); every path's counts are listed beside it
     by_path = {"calibrate": cal_launches, "surrogate": sur_launches,
-               "surrogate_big": big_launches}
+               "surrogate_big": big_launches, "gp_chol": gp_launches}
     rows = (
         ("diffuse_evaporate", ("diffuse_evaporate", 640), "diffusion.cu",
          "src/repro/kernels/diffusion.py:89", "calibrate"),
@@ -680,10 +915,13 @@ def main() -> int:
          "src/repro/kernels/dominance.py:101", "calibrate"),
         ("gp_sqdist", ("gp_sqdist", "sqdist", 512, 50000), "gp.cu",
          "src/repro/kernels/gp.py:93", "surrogate_big"),
-        # gp_matrix has no caller in the port (as in the reference): it is
-        # held against its plain version above and no path launches it
+        # gp_matrix: the gp_chol path's unfused sweep assembles with it
         ("gp_matrix", ("gp_matrix", "matern52", 512, 50000), "gp.cu",
-         "src/repro/kernels/gp.py:99", None),
+         "src/repro/kernels/gp.py:99", "gp_chol"),
+        ("chol_blocked", ("chol_blocked", 4096), "cholesky.cu",
+         "src/repro/kernels/cholesky.py:165", "gp_chol"),
+        ("gp_chol_blocked", ("gp_chol_blocked", "matern52", 4096),
+         "cholesky.cu", "src/repro/kernels/cholesky.py:202", "gp_chol"),
         ("tri_solve", ("tri_solve", False, 512, 50000), "trisolve.cu",
          "src/repro/kernels/cholesky.py:282", "surrogate_big"),
     )
@@ -694,7 +932,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": by_path[path][name] if path else 0,
+            "launches": by_path[path][name],
             "path": path,
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "shape": r["shape"], "max_abs_err": r["max_abs_err"],

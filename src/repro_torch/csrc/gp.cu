@@ -23,18 +23,16 @@
 // one rounded multiply and one rounded add per further column; the
 // __f*_rn intrinsics keep nvcc from forming FMAs, so the distances equal the
 // plain version bitwise on the card. The epilogues use IEEE division, sqrtf
-// and expf (no --use_fast_math) in the plain gp_kernel_fn's order.
-#include <cuda_runtime.h>
+// and expf (no --use_fast_math) in the plain gp_kernel_fn's order. That
+// arithmetic (dot_rn, gp_d2, gp_cov) lives in tile.cuh, which the blocked
+// Cholesky's fused assembly (cholesky.cu) shares.
+#include "tile.cuh"
 
 namespace {
 
 constexpr int kCols = 256;   // threads per block = output columns per tile
 constexpr int kRows = 16;    // output rows per tile
 constexpr int kMaxDim = 32;
-
-constexpr int kSqdist = 0;
-constexpr int kMatern52 = 1;
-constexpr int kRbf = 2;
 
 __global__ void gp_kernel(const float* __restrict__ x1,
                           const float* __restrict__ x2, int n1, int n2, int d,
@@ -59,38 +57,17 @@ __global__ void gp_kernel(const float* __restrict__ x1,
   __syncthreads();
   if (t < rows) {
     const float* a = s_x1 + t * kMaxDim;
-    float n = __fmul_rn(a[0], a[0]);
-    for (int k = 1; k < d; ++k) n = __fadd_rn(n, __fmul_rn(a[k], a[k]));
-    s_n1[t] = n;
+    s_n1[t] = dot_rn(a, 1, a, 1, d);
   }
   __syncthreads();
   if (j >= n2) return;
 
-  float n2j = __fmul_rn(s_x2[t], s_x2[t]);
-  for (int k = 1; k < d; ++k) {
-    const float b = s_x2[k * kCols + t];
-    n2j = __fadd_rn(n2j, __fmul_rn(b, b));
-  }
-  const float s5 = sqrtf(5.0f);
-  const float c53 = 5.0f / 3.0f;
+  const float n2j = dot_rn(s_x2 + t, kCols, s_x2 + t, kCols, d);
   const float ls2 = __fmul_rn(lengthscale, lengthscale);
   for (int r = 0; r < rows; ++r) {
-    const float* a = s_x1 + r * kMaxDim;
-    float cross = __fmul_rn(a[0], s_x2[t]);
-    for (int k = 1; k < d; ++k) {
-      cross = __fadd_rn(cross, __fmul_rn(a[k], s_x2[k * kCols + t]));
-    }
-    float d2 = __fsub_rn(__fadd_rn(s_n1[r], n2j), __fmul_rn(2.0f, cross));
-    d2 = d2 > 0.0f ? d2 : (d2 != d2 ? d2 : 0.0f);   // maximum(d2, 0), NaN kept
-    float v = d2;
-    if (kind == kMatern52) {
-      const float rr = __fdiv_rn(d2 > 0.0f ? sqrtf(d2) : 0.0f, lengthscale);
-      const float poly = __fadd_rn(__fadd_rn(1.0f, __fmul_rn(s5, rr)),
-                                   __fmul_rn(c53, __fmul_rn(rr, rr)));
-      v = __fmul_rn(__fmul_rn(variance, poly), expf(__fmul_rn(-s5, rr)));
-    } else if (kind == kRbf) {
-      v = __fmul_rn(variance, expf(__fdiv_rn(__fmul_rn(-0.5f, d2), ls2)));
-    }
+    const float cross = dot_rn(s_x1 + r * kMaxDim, 1, s_x2 + t, kCols, d);
+    const float v = gp_cov(gp_d2(s_n1[r], n2j, cross), kind, lengthscale, ls2,
+                           variance);
     out[static_cast<size_t>(i0 + r) * n2 + j] = v;
   }
 }

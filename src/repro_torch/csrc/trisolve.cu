@@ -16,7 +16,8 @@
 // Design. The TPU kernel runs the row-block axis in sequence on one core and
 // keeps the solved X panel in VMEM. Here:
 //  * trisolve_diag_inv_kernel: one block per 64 x 64 diagonal tile inverts
-//    it by forward substitution in shared memory (thread j owns column j).
+//    it by forward substitution in shared memory (thread j owns column j;
+//    tile.cuh's tri_inv_tile, shared with the blocked Cholesky).
 //    A (256, 256) f32 tile would be 256 KB, more than a block's 227 KB of
 //    shared memory, so the kernel tiles at 64 whatever `block` the caller
 //    pads to (the Python wrapper keeps block/rhs_block for the reference's
@@ -27,16 +28,13 @@
 //    solved earlier are read back from X (L2-resident: the block wrote them
 //    moments before, after a __syncthreads), never through the read-only
 //    path. Every 64 x 64 x 64 product runs from two shared-memory tiles into
-//    a 4 x 4 register tile per thread (256 threads), columns strided by 16
+//    a 4 x 4 register tile per thread (256 threads; tile.cuh's
+//    tile_product), columns strided by 16
 //    so that shared-memory reads and global writes stay conflict-free and
 //    coalesced. The strips are independent, so m / 64 blocks fill the card.
-#include <cuda_runtime.h>
+#include "tile.cuh"
 
 namespace {
-
-constexpr int kTile = 64;
-constexpr int kPad = kTile + 1;
-constexpr int kThreads = 256;   // 16 x 16, each a 4 x 4 register tile
 
 __global__ void trisolve_diag_inv_kernel(const float* __restrict__ l, int n,
                                          float* __restrict__ linv) {
@@ -49,62 +47,11 @@ __global__ void trisolve_diag_inv_kernel(const float* __restrict__ l, int n,
     s_l[i * kPad + k] = l[base + static_cast<size_t>(i) * n + k];
   }
   __syncthreads();
-  const int j = threadIdx.x;   // column of the inverse
-  for (int i = 0; i < kTile; ++i) {
-    float v = 0.0f;
-    if (i >= j) {
-      float s = i == j ? 1.0f : 0.0f;
-      for (int k = j; k < i; ++k) s = fmaf(-s_l[i * kPad + k], s_inv[k * kPad + j], s);
-      v = s / s_l[i * kPad + i];
-    }
-    s_inv[i * kPad + j] = v;
-  }
+  tri_inv_tile(s_l, s_inv);
   __syncthreads();
   float* out = linv + static_cast<size_t>(t) * kTile * kTile;
   for (int e = threadIdx.x; e < kTile * kTile; e += blockDim.x) {
     out[e] = s_inv[(e / kTile) * kPad + (e % kTile)];
-  }
-}
-
-// s_a[k][i] = A[i][k] of the 64 x 64 left operand: for the forward solve
-// A = src (a tile of L or Linv, row-major with leading dimension ld), for
-// the backward solve A = src^T.
-__device__ void load_left(float* s_a, const float* src, size_t ld,
-                          bool transpose) {
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int row = e / kTile, col = e % kTile;
-    const float v = src[static_cast<size_t>(row) * ld + col];
-    if (transpose) {
-      s_a[row * kPad + col] = v;   // A[col][row] = src[row][col]
-    } else {
-      s_a[col * kPad + row] = v;   // A[row][col] = src[row][col]
-    }
-  }
-}
-
-// s_b[k][c] = the 64 x 64 right operand, rows of `src` with leading dim ld
-__device__ void load_right(float* s_b, const float* src, size_t ld) {
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int row = e / kTile, col = e % kTile;
-    s_b[row * kPad + col] = src[static_cast<size_t>(row) * ld + col];
-  }
-}
-
-// acc[a][b] += sign * sum_k A[ty + 16a][k] * B[k][tx + 16b]
-__device__ void tile_product(float (&acc)[4][4], const float* s_a,
-                             const float* s_b, int tx, int ty, float sign) {
-#pragma unroll 8
-  for (int k = 0; k < kTile; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = sign * s_a[k * kPad + ty + 16 * a];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) bv[b] = s_b[k * kPad + tx + 16 * b];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
   }
 }
 

@@ -8,8 +8,9 @@ compiles on its own with
          -Xcompiler -fPIC -Xptxas=-v -o <name>-<hash>.so csrc/<name>.cu
 
 into ``repro_torch/_build/`` (listed in ``.gitignore``). The file name
-carries a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one is loaded as it is. ``build()`` starts one ``nvcc`` per
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+loaded as it is. ``build()`` starts one ``nvcc`` per
 source, all at once, and waits for them; ``load()`` builds on first use.
 ptxas's register and shared-memory report lands beside each library as
 ``<name>-<hash>.log``.
@@ -39,7 +40,7 @@ from typing import Dict, Iterable, Optional
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("diffusion", "dominance", "gp", "trisolve")
+SOURCES = ("cholesky", "diffusion", "dominance", "gp", "trisolve")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -65,6 +66,8 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -22,6 +22,8 @@ KERNELS = {
     "gp_sqdist": _gp.gp_sqdist,
     "gp_matrix": _gp.gp_matrix,
     "tri_solve": _cholesky.tri_solve_blocked,
+    "chol_blocked": _cholesky.chol_blocked,
+    "gp_chol_blocked": _cholesky.gp_chol_blocked,
 }
 
 
@@ -120,7 +122,7 @@ def gp_matrix(x1, x2, *, kind="matern52", lengthscale=0.2, variance=1.0):
 
 
 # --------------------------------------------------------------------------
-# Blocked triangular solve
+# Blocked Cholesky and triangular solve
 # --------------------------------------------------------------------------
 CHOL_BLOCK = 256         # the reference's pinned tile edge (64 * 2**j)
 TRSM_RHS_BLOCK = 256
@@ -131,8 +133,60 @@ def _chol_block_ok(block: int) -> bool:
     return r == 0 and q >= 1 and (q & (q - 1)) == 0
 
 
+def _check_block(block: int) -> None:
+    if not _chol_block_ok(block):
+        raise ValueError(f"block must be 64*2^j, got {block}")
+
+
 def _ceil_to(n: int, b: int) -> int:
     return -(-n // b) * b
+
+
+def _pad_identity(a, n_p):
+    """(n, n) -> contiguous f32 (n_p, n_p) with ``a`` in the top-left corner
+    and identity past it, so a factor of the padded matrix is blkdiag(L, I)
+    and a solve against it leaves the padded rows alone."""
+    n = a.shape[0]
+    ap = torch.eye(n_p, dtype=torch.float32, device=a.device)
+    ap[:n, :n] = a
+    return ap
+
+
+def chol_factor(a, *, block=CHOL_BLOCK):
+    """Lower Cholesky factor of a (n, n) symmetric positive definite matrix
+    by the blocked engine (``repro.kernels.ops.chol_factor``): pads to a
+    multiple of ``block`` with identity, factors, slices back. A pivot at or
+    below 1e-30 is taken as 1e-30: no error for a matrix that is not
+    positive definite."""
+    _check_block(block)
+    n = a.shape[0]
+    ap = _pad_identity(a, _ceil_to(n, block))
+    if _on_cpu(a):
+        out = ref.chol_blocked_ref(ap, block=block)
+    else:
+        out = _cholesky.chol_blocked(ap)
+    return out[:n, :n]
+
+
+def gp_chol(x, *, kind="matern52", lengthscale=0.2, nugget=1e-4,
+            block=CHOL_BLOCK):
+    """Fused covariance assembly and blocked Cholesky
+    (``repro.kernels.ops.gp_chol``): x (n, d) points -> the lower factor of
+    K(x, x) + nugget I (variance 1). Zero-pads x to a multiple of ``block``
+    (the assembly masks the pad to identity rows) and slices back; on the
+    kernel path K never exists as an unfactored (n, n) matrix. A
+    lengthscale sweep calls this once per lengthscale."""
+    _check_block(block)
+    n, d = x.shape
+    xp = torch.zeros((_ceil_to(n, block), d), dtype=torch.float32,
+                     device=x.device)
+    xp[:n] = x
+    kw = dict(kind=kind, lengthscale=float(lengthscale), nugget=float(nugget))
+    if _on_cpu(x):
+        out = ref.gp_chol_blocked_ref(xp, n, block=block, **kw)
+    else:
+        out = _cholesky.gp_chol_blocked(xp, n, **kw)
+    return out[:n, :n]
 
 
 def tri_solve(l, b, *, trans=False, block=CHOL_BLOCK,
@@ -141,15 +195,13 @@ def tri_solve(l, b, *, trans=False, block=CHOL_BLOCK,
     (``trans=False``) or L^T X = B (``trans=True``); b (n, m) or (n,). Pads
     L with identity and B with zeros to multiples of ``block`` and
     ``rhs_block`` (the reference's contract), solves, slices back."""
-    if not _chol_block_ok(block):
-        raise ValueError(f"block must be 64*2^j, got {block}")
+    _check_block(block)
     n = l.shape[0]
     vec = b.dim() == 1
     bm = b[:, None] if vec else b
     m = bm.shape[1]
     n_p, m_p = _ceil_to(n, block), _ceil_to(m, rhs_block)
-    lp = torch.eye(n_p, dtype=torch.float32, device=l.device)
-    lp[:n, :n] = l
+    lp = _pad_identity(l, n_p)
     bp = torch.zeros((n_p, m_p), dtype=torch.float32, device=l.device)
     bp[:n, :m] = bm
     if _on_cpu(l):

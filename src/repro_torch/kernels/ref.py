@@ -231,3 +231,117 @@ def tri_solve_blocked_ref(l, b, *, trans=False, block=256):
                                  i * block:(i + 1) * block])
         xs[i] = (inv.T if trans else inv) @ s
     return torch.cat(xs, 0)
+
+
+# ---------------------------------------------------------------------------
+# Blocked Cholesky (B5) and fused assembly + Cholesky (B6)
+# ---------------------------------------------------------------------------
+def chol_base_ref(a):
+    """Unblocked Cholesky–Crout of one (b, b) tile, b <= CHOL_BASE
+    (``repro.kernels.ref.chol_base_ref``): per column j the pivot
+    ``sqrt(max(a_jj, 1e-30))``, the column below it divided by the pivot,
+    then the rank-1 downdate of the trailing part; the lower triangle is
+    returned. The guard means a matrix that is not positive definite gives
+    huge or non-finite entries, never an error (``torch.linalg.cholesky``
+    would raise). Column j is read and replaced through one-hot masks, as
+    the reference does, so a non-finite entry spreads to the same places."""
+    b = a.shape[0]
+    idx = torch.arange(b, device=a.device)
+    floor = torch.tensor(1e-30, dtype=a.dtype, device=a.device)
+    acc = a
+    for j in range(b):
+        onehot = (idx == j).to(a.dtype)
+        below = (idx > j).to(a.dtype)
+        ajj = (acc * onehot[None, :] * onehot[:, None]).sum()
+        d = torch.sqrt(torch.maximum(ajj, floor))
+        col = (acc * onehot[None, :]).sum(1)
+        lcol = torch.where(idx > j, col / d, 0.0) + onehot * d
+        acc = acc - torch.outer(lcol * below, lcol * below)
+        acc = acc * (1.0 - onehot[None, :]) + torch.outer(lcol, onehot)
+    return torch.tril(acc)
+
+
+def chol_tile_ref(a):
+    """Factor one (block, block) diagonal tile by recursive halving down to
+    CHOL_BASE (``repro.kernels.ref.chol_tile_ref``): L21 = A21 inv(L11)^T,
+    then the factor of A22 - L21 L21^T."""
+    b = a.shape[0]
+    if b <= CHOL_BASE:
+        return chol_base_ref(a)
+    h = b // 2
+    l11 = chol_tile_ref(a[:h, :h])
+    l21 = a[h:, :h] @ tri_inv_tile_ref(l11).T
+    l22 = chol_tile_ref(a[h:, h:] - l21 @ l21.T)
+    z = torch.zeros((h, b - h), dtype=a.dtype, device=a.device)
+    return torch.cat([torch.cat([l11, z], 1), torch.cat([l21, l22], 1)], 0)
+
+
+def gp_tile_ref(x1, x2, row0, col0, n, *, kind, lengthscale, nugget):
+    """One covariance tile of the fused assemble-and-factor path
+    (``repro.kernels.ref.gp_tile_ref``): K[row0:row0+b1, col0:col0+b2] of
+    the n-point matrix (variance 1) with ``nugget`` added on the true
+    diagonal, and identity rows and columns at every index >= n, so the
+    padded matrix factors as blkdiag(L, I). The covariance is B4's plain
+    version, ``gp_kernel_fn(kind, gp_sqdist_ref(...))``, which
+    ``csrc/cholesky.cu`` assembles bitwise."""
+    k = gp_kernel_fn(kind, gp_sqdist_ref(x1, x2), lengthscale, 1.0)
+    r = row0 + torch.arange(x1.shape[0], device=x1.device)
+    c = col0 + torch.arange(x2.shape[0], device=x1.device)
+    eye = (r[:, None] == c[None, :]).to(torch.float32)
+    pad = (r[:, None] >= n) | (c[None, :] >= n)
+    return torch.where(pad, eye, k + nugget * eye)
+
+
+def _chol_left_tiles(tiles, nb, block):
+    """Left-looking factor of a dict {(i, j): tile} of the lower
+    (block, block) tiles -> the assembled lower L (nb*block, nb*block)
+    (``repro.kernels.ref._chol_left_tiles``): block column k is its tiles
+    minus the products with the finished columns, one tile product at a
+    time in increasing j; then the diagonal tile's factor, and each tile
+    below times the transposed inverse of that factor."""
+    out = {}
+    for k in range(nb):
+        col = {}
+        for i in range(k, nb):
+            s = tiles[(i, k)]
+            for j in range(k):
+                s = s - out[(i, j)] @ out[(k, j)].T
+            col[i] = s
+        lkk = chol_tile_ref(col[k])
+        out[(k, k)] = lkk
+        if k < nb - 1:
+            linv_t = tri_inv_tile_ref(lkk).T
+            for i in range(k + 1, nb):
+                out[(i, k)] = col[i] @ linv_t
+    z = torch.zeros((block, block), dtype=lkk.dtype, device=lkk.device)
+    return torch.cat([torch.cat([out[(i, j)] if j <= i else z
+                                 for j in range(nb)], 1)
+                      for i in range(nb)], 0)
+
+
+def chol_blocked_ref(a, *, block=256):
+    """Blocked Cholesky (``repro.kernels.ref.chol_blocked_ref``): a
+    (n_p, n_p) f32 with n_p % block == 0, identity-padded past the true
+    size -> lower L. Left-looking over (block, block) tiles; only the lower
+    tiles are read. The factor depends on ``block`` in the last bit, as the
+    reference's does."""
+    nb = a.shape[0] // block
+    tiles = {(i, j): a[i * block:(i + 1) * block, j * block:(j + 1) * block]
+             for i in range(nb) for j in range(i + 1)}
+    return _chol_left_tiles(tiles, nb, block)
+
+
+def gp_chol_blocked_ref(x, n, *, kind, lengthscale, nugget, block=256):
+    """Fused assembly and factorization
+    (``repro.kernels.ref.gp_chol_blocked_ref``): x (n_p, d) zero-padded
+    points, n_p % block == 0, true count n -> the lower factor of
+    K(x, x) + nugget I with identity past n. Each lower tile is assembled
+    through ``gp_tile_ref`` from its two (block, d) row tiles; K never exists
+    as one (n_p, n_p) matrix."""
+    nb = x.shape[0] // block
+    xt = [x[i * block:(i + 1) * block] for i in range(nb)]
+    tiles = {(i, j): gp_tile_ref(xt[i], xt[j], i * block, j * block, n,
+                                 kind=kind, lengthscale=lengthscale,
+                                 nugget=nugget)
+             for i in range(nb) for j in range(i + 1)}
+    return _chol_left_tiles(tiles, nb, block)

@@ -69,9 +69,12 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     ops.gp_matrix(torch.zeros((4, 2), device=cuda),
                   torch.zeros((3, 2), device=cuda))
     ops.tri_solve(torch.eye(5, device=cuda), torch.zeros(5, device=cuda))
+    ops.chol_factor(torch.eye(5, device=cuda), block=64)
+    ops.gp_chol(torch.rand((5, 2), device=cuda), block=64)
     assert ops.kernel_launch_counts() == {
         "diffuse_evaporate": 1, "dominance_pass": 1, "dominated_counts": 1,
-        "gp_sqdist": 1, "gp_matrix": 1, "tri_solve": 1}
+        "gp_sqdist": 1, "gp_matrix": 1, "tri_solve": 1, "chol_blocked": 1,
+        "gp_chol_blocked": 1}
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -135,6 +138,76 @@ def test_tri_solve_kernel_matches_plain(cuda, trans, n, m):
     lt = l.T if trans else l
     resid = torch.linalg.matrix_norm(lt @ got - b) / torch.linalg.matrix_norm(b)
     assert resid.item() < 1e-5
+
+
+def _spd(n, g, dev):
+    a = torch.randn((n, n), generator=g, device=dev)
+    return a @ a.T / n + torch.eye(n, device=dev)
+
+
+# Kernel (64-wide tiles, right-looking) and plain version (block-wide tiles,
+# left-looking, recursive tile factor) sum in other orders: the tolerance
+# the reference's bench holds between two algorithms for one factor
+# (benchmarks/run.py:593-595), and a relative residual under 1e-4.
+@pytest.mark.parametrize("n,block", [(256, 64), (512, 256), (200, 64)])
+def test_chol_kernel_matches_plain(cuda, n, block):
+    g = _gen(cuda, n + block)
+    a = _spd(n, g, cuda)
+    n_p = -(-n // block) * block
+    ap = torch.eye(n_p, device=cuda)
+    ap[:n, :n] = a
+    got = cholesky.chol_blocked(ap)
+    expect = ref.chol_blocked_ref(ap, block=block)
+    torch.testing.assert_close(got, expect, rtol=2e-4, atol=2e-4)
+    assert torch.equal(got[n:, n:], torch.eye(n_p - n, device=cuda))
+    assert not got[n:, :n].any() and not got.triu(1).any()
+    l = got[:n, :n]
+    resid = torch.linalg.matrix_norm(l @ l.T - a) / torch.linalg.matrix_norm(a)
+    assert resid.item() < 1e-4
+
+
+@pytest.mark.parametrize("kind", ["matern52", "rbf"])
+@pytest.mark.parametrize("n,n_p,d", [(83, 128, 3), (200, 256, 8),
+                                     (256, 256, 5)])
+def test_gp_chol_kernel_is_chol_kernel_of_the_assembled_matrix(cuda, kind, n,
+                                                               n_p, d):
+    """The fused kernel assembles each covariance tile in B4's arithmetic
+    order: bitwise the blocked kernel's factor of the plainly assembled K,
+    and within 2e-4 of the fused plain version."""
+    g = _gen(cuda, n * d)
+    x = torch.zeros((n_p, d), device=cuda)
+    x[:n] = torch.rand((n, d), generator=g, device=cuda)
+    kw = dict(kind=kind, lengthscale=0.3, nugget=1e-4)
+    got = cholesky.gp_chol_blocked(x, n, **kw)
+    k = ref.gp_tile_ref(x, x, 0, 0, n, **kw)
+    assert torch.equal(got, cholesky.chol_blocked(k))
+    torch.testing.assert_close(
+        got, ref.gp_chol_blocked_ref(x, n, block=64, **kw),
+        rtol=2e-4, atol=2e-4)
+
+
+def test_chol_kernels_reject_what_they_do_not_take(cuda):
+    with pytest.raises(ValueError, match="f32"):
+        cholesky.chol_blocked(torch.eye(64, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        cholesky.chol_blocked(torch.eye(128, device=cuda)[:, ::2][:64])
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cholesky.chol_blocked(torch.eye(100, device=cuda))
+    kw = dict(kind="matern52", lengthscale=0.2, nugget=1e-4)
+    with pytest.raises(ValueError, match="f32"):
+        cholesky.gp_chol_blocked(torch.zeros((64, 2), device=cuda,
+                                             dtype=torch.float64), 64, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cholesky.gp_chol_blocked(torch.zeros((2, 64), device=cuda).T, 64,
+                                 **kw)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cholesky.gp_chol_blocked(torch.zeros((100, 2), device=cuda), 100,
+                                 **kw)
+    with pytest.raises(ValueError, match="true size"):
+        cholesky.gp_chol_blocked(torch.zeros((64, 2), device=cuda), 65, **kw)
+    with pytest.raises(ValueError, match="kind"):
+        cholesky.gp_chol_blocked(torch.zeros((64, 2), device=cuda), 64,
+                                 **{**kw, "kind": "sqdist"})
 
 
 def test_calibrate_on_cuda_resumes_bitwise(cuda, tmp_path):

@@ -161,9 +161,12 @@ def test_cpu_routing_leaves_kernel_counts_alone():
     ops.gp_sqdist(torch.zeros((4, 2)), torch.zeros((3, 2)))
     ops.gp_matrix(torch.zeros((4, 2)), torch.zeros((3, 2)))
     ops.tri_solve(torch.eye(5), torch.zeros((5, 2)))
+    ops.chol_factor(torch.eye(5), block=64)
+    ops.gp_chol(torch.zeros((5, 2)), block=64)
     assert ops.kernel_launch_counts() == {
         "diffuse_evaporate": 0, "dominance_pass": 0, "dominated_counts": 0,
-        "gp_sqdist": 0, "gp_matrix": 0, "tri_solve": 0}
+        "gp_sqdist": 0, "gp_matrix": 0, "tri_solve": 0, "chol_blocked": 0,
+        "gp_chol_blocked": 0}
 
 
 # ---------------------------------------------------------------------------

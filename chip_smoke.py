@@ -15,7 +15,9 @@ Phases (any failure exits non-zero):
               bitwise, dominance equal, the triangular solve and the
               blocked Cholesky within stated tolerances, the fused
               assemble-and-factor bitwise equal to the blocked Cholesky of
-              the plainly assembled matrix). "ms" is the kernel's time on
+              the plainly assembled matrix, and ops.chol_factor / gp_chol,
+              which pad only to a multiple of 64 on the card, bitwise equal
+              to the factor padded to the block). "ms" is the kernel's time on
               the card (torch.profiler's CUDA kernel records), beside its
               plain version's and, where one PyTorch call computes the
               same thing, that call's; "call_ms" is the per-call time of
@@ -153,11 +155,6 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     busy = profiled(torch, fn, reps)[1]
     require(busy > 0, "the profiler recorded no device time")
     return busy / reps
-
-
-def within(got, want, tol: float) -> bool:
-    """|got - want| <= tol + tol * |want| everywhere (rtol = atol = tol)."""
-    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
 
 
 def device_busy_share(torch, fn) -> dict:
@@ -389,11 +386,16 @@ def main() -> int:
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         resid = residual(got[:n, :n], a)
-        require(within(got, want, 2e-4) and resid < 1e-4
+        require(torch.allclose(got, want, rtol=2e-4, atol=2e-4)
+                and resid < 1e-4
                 and torch.equal(got[n:, n:], torch.eye(n_p - n, device=dev))
                 and not got[n:, :n].any() and not got.triu(1).any(),
                 f"chol_blocked at ({n}, block {block}): max abs err {err}, "
                 f"residual {resid}")
+        # ops pads only to a multiple of 64 on the card: the same bits
+        require(torch.equal(ops.chol_factor(a, block=block), got[:n, :n]),
+                f"chol_factor at ({n}, block {block}) differs from the "
+                f"factor of the matrix padded to {n_p}")
         b_ms, b_by = bound_ms(2 * n_p * n_p * 4, n_p ** 3 / 3)
         r = {"kernel": "chol_blocked", "shape": [n, n], "padded": n_p,
              "block": block, "max_abs_err": err, "residual": resid,
@@ -439,9 +441,14 @@ def main() -> int:
                     f"gp_chol_blocked({kind}) at ({n}, 8) differs from "
                     f"chol_blocked of the plainly assembled matrix in "
                     f"{int((got != unfused).sum())} entries")
-            require(within(got, want, 2e-4) and resid < 1e-4,
+            require(torch.allclose(got, want, rtol=2e-4, atol=2e-4)
+                    and resid < 1e-4,
                     f"gp_chol_blocked({kind}) at ({n}, 8): max abs err "
                     f"{err}, residual {resid}")
+            require(torch.equal(ops.gp_chol(xp[:n], block=block, **kw),
+                                got[:n, :n]),
+                    f"gp_chol({kind}) at ({n}, block {block}) differs from "
+                    f"the factor of the points padded to {n_p}")
             # per lower element: 2 x 8 multiply-adds, the distance's 3
             # operations, the epilogue (Matern 9, RBF 4), the nugget add
             assembly_ops = n_p * (n_p + 1) / 2 * (
@@ -876,7 +883,8 @@ def main() -> int:
     lib = library_sweep()
     torch.cuda.synchronize()
     errs = [(f - lf).abs().max().item() for f, lf in zip(fused, lib)]
-    fused_ok = [within(f, lf, 2e-4) for f, lf in zip(fused, lib)]
+    fused_ok = [torch.allclose(f, lf, rtol=2e-4, atol=2e-4)
+                for f, lf in zip(fused, lib)]
     require(all(fused_ok), f"gp_chol against cuSOLVER (rtol = atol = 2e-4): "
             f"max abs errs {errs} at lengthscales {grid}")
     for f in fused:

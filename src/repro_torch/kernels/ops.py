@@ -152,19 +152,29 @@ def _pad_identity(a, n_p):
     return ap
 
 
+def _kernel_rows(n: int) -> int:
+    """Rows the kernels need: they tile at 64 whatever ``block`` is, and a
+    pad past the next multiple of 64 would factor as identity, uncoupled
+    from the true part, so it would change no bit of ``[:n, :n]``."""
+    return _ceil_to(n, _cholesky.TILE)
+
+
 def chol_factor(a, *, block=CHOL_BLOCK):
     """Lower Cholesky factor of a (n, n) symmetric positive definite matrix
     by the blocked engine (``repro.kernels.ops.chol_factor``): pads to a
-    multiple of ``block`` with identity, factors, slices back. A pivot at or
-    below 1e-30 is taken as 1e-30: no error for a matrix that is not
-    positive definite."""
+    multiple of ``block`` with identity (the kernel: of 64), factors, slices
+    back. A pivot at or below 1e-30 is taken as 1e-30: no error for a
+    matrix that is not positive definite."""
     _check_block(block)
     n = a.shape[0]
-    ap = _pad_identity(a, _ceil_to(n, block))
     if _on_cpu(a):
-        out = ref.chol_blocked_ref(ap, block=block)
+        out = ref.chol_blocked_ref(_pad_identity(a, _ceil_to(n, block)),
+                                   block=block)
     else:
-        out = _cholesky.chol_blocked(ap)
+        n_p = _kernel_rows(n)
+        if n != n_p or a.dtype != torch.float32 or not a.is_contiguous():
+            a = _pad_identity(a, n_p)
+        out = _cholesky.chol_blocked(a)    # reads a, writes a new buffer
     return out[:n, :n]
 
 
@@ -173,13 +183,13 @@ def gp_chol(x, *, kind="matern52", lengthscale=0.2, nugget=1e-4,
     """Fused covariance assembly and blocked Cholesky
     (``repro.kernels.ops.gp_chol``): x (n, d) points -> the lower factor of
     K(x, x) + nugget I (variance 1). Zero-pads x to a multiple of ``block``
-    (the assembly masks the pad to identity rows) and slices back; on the
-    kernel path K never exists as an unfactored (n, n) matrix. A
-    lengthscale sweep calls this once per lengthscale."""
+    (the kernel: of 64; the assembly masks the pad to identity rows) and
+    slices back; on the kernel path K never exists as an unfactored (n, n)
+    matrix. A lengthscale sweep calls this once per lengthscale."""
     _check_block(block)
     n, d = x.shape
-    xp = torch.zeros((_ceil_to(n, block), d), dtype=torch.float32,
-                     device=x.device)
+    n_p = _ceil_to(n, block) if _on_cpu(x) else _kernel_rows(n)
+    xp = torch.zeros((n_p, d), dtype=torch.float32, device=x.device)
     xp[:n] = x
     kw = dict(kind=kind, lengthscale=float(lengthscale), nugget=float(nugget))
     if _on_cpu(x):

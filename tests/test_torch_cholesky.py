@@ -131,10 +131,31 @@ def test_chol_blocked_zero_pivot_does_not_raise(case):
 # keeps a few ulps of |x|^2 where the port's distance of a point to itself
 # is exactly 0: up to 1e-5 apart in K at lengthscale 0.2 (|dk/dd2| <=
 # 5 / (6 ls^2) = 21 near 0). The matrices here have condition numbers up to
-# 2e4, which turns that into up to 2.4e-4 between the two fused factors,
-# each side about as far from the float64 factor as the other. So the test
-# holds the assembly, and the factorization on the reference's own K, each
-# within TOL, and the padding exactly.
+# 2e4, which turns that into up to 2.4e-4 between the two fused factors.
+# So the test holds the assembly, and the factorization on the reference's
+# own K, each within TOL, and the padding exactly; and it holds the gap
+# between the fused factors to what the witness below explains: the float64
+# factor of the exactly assembled K, from which each side must be about as
+# far as the other.
+WITNESS_TOL = 2.5e-4    # each fused factor from the float64 one: 1.6e-4 read
+GAP_TOL = 4e-4          # the two fused factors apart: 2.4e-4 read
+K_EXACT_TOL = 1e-5      # each f32 K from the float64 one: 7.4e-6 read
+
+
+def _gp_matrix_f64(x, n, kind, lengthscale, nugget):
+    """K(x, x) + nugget I of the first n points, in float64 from the
+    differences of the coordinates: the matrix both f32 sides round."""
+    p = x[:n].astype(np.float64)
+    d2 = ((p[:, None, :] - p[None, :, :]) ** 2).sum(-1)
+    if kind == "rbf":
+        k = np.exp(-0.5 * d2 / lengthscale ** 2)
+    else:
+        r = np.sqrt(d2) / lengthscale
+        k = (1.0 + np.sqrt(5.0) * r + 5.0 / 3.0 * r * r) \
+            * np.exp(-np.sqrt(5.0) * r)
+    return k + nugget * np.eye(n)
+
+
 @pytest.mark.parametrize("kind", ["matern52", "rbf"])
 @pytest.mark.parametrize("n", [83, 96, 128])      # prime, in a tile, full
 def test_gp_chol_blocked_matches_the_jax_oracle(n, kind):
@@ -147,6 +168,7 @@ def test_gp_chol_blocked_matches_the_jax_oracle(n, kind):
     np.testing.assert_allclose(k_port, k_jax, rtol=TOL, atol=TOL)
     expect = np.asarray(_jax_gp_chol(n, kind, 0.2, 1e-4, block)(
         jnp.asarray(x)))
+    # fed the reference's own K, the port's factor closes the gap
     np.testing.assert_allclose(
         ref.chol_blocked_ref(_t(k_jax), block=block).numpy(), expect,
         rtol=TOL, atol=TOL)
@@ -157,6 +179,20 @@ def test_gp_chol_blocked_matches_the_jax_oracle(n, kind):
     np.testing.assert_array_equal(np.triu(got, 1), 0.0)
     np.testing.assert_allclose(got[:n, :n] @ got[:n, :n].T, k_port[:n, :n],
                                rtol=TOL, atol=TOL)
+    # the witness: both K round the same float64 matrix; both fused factors
+    # are near its float64 factor, neither twice as far as the other, and
+    # within GAP_TOL of each other
+    k64 = _gp_matrix_f64(x, n, **kw)
+    l64 = np.linalg.cholesky(k64)
+    for k in (k_port, k_jax):
+        np.testing.assert_allclose(k[:n, :n], k64, rtol=0, atol=K_EXACT_TOL)
+    err_port = np.abs(got[:n, :n] - l64).max()
+    err_jax = np.abs(expect[:n, :n] - l64).max()
+    assert err_port < WITNESS_TOL and err_jax < WITNESS_TOL, \
+        (err_port, err_jax)
+    assert err_port <= 2 * err_jax and err_jax <= 2 * err_port, \
+        (err_port, err_jax)
+    np.testing.assert_allclose(got, expect, rtol=GAP_TOL, atol=GAP_TOL)
 
 
 @pytest.mark.parametrize("kind", ["matern52", "rbf"])

@@ -186,6 +186,25 @@ def test_gp_chol_kernel_is_chol_kernel_of_the_assembled_matrix(cuda, kind, n,
         rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("n,block", [(200, 256), (600, 512), (256, 256)])
+def test_ops_pad_to_64_on_the_card_changes_no_bit(cuda, n, block):
+    """On the card ops pads to a multiple of 64, not of ``block``: the pad
+    past it factors as identity, so [:n, :n] is the same bits."""
+    g = _gen(cuda, n)
+    a = _spd(n, g, cuda)
+    n_p = -(-n // block) * block
+    ap = torch.eye(n_p, device=cuda)
+    ap[:n, :n] = a
+    assert torch.equal(ops.chol_factor(a, block=block),
+                       cholesky.chol_blocked(ap)[:n, :n])
+    x = torch.zeros((n_p, 4), device=cuda)
+    x[:n] = torch.rand((n, 4), generator=g, device=cuda)
+    assert torch.equal(ops.gp_chol(x[:n], block=block),
+                       cholesky.gp_chol_blocked(
+                           x, n, kind="matern52", lengthscale=0.2,
+                           nugget=1e-4)[:n, :n])
+
+
 def test_chol_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="f32"):
         cholesky.chol_blocked(torch.eye(64, device=cuda, dtype=torch.float64))

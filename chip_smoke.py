@@ -2,8 +2,10 @@
 GPU: builds the hand-written kernels, holds each against its plain PyTorch
 version on the card, drives the island-model calibration and the
 surrogate-assisted calibration of the ants model at the paper's full model
-size, the surrogate's archive-scale fit at 50,000 points, measures one chunk
-of the streaming init, and prints one JSON object per line.
+size, the surrogate's archive-scale fit at 50,000 points, the GP
+factorization sweep and flash attention at smollm-135m's full width,
+measures one chunk of the streaming init, and prints one JSON object per
+line.
 
     python3 chip_smoke.py
 
@@ -57,7 +59,15 @@ Phases (any failure exits non-zero):
               (bitwise the same factors required); each factor within 2e-4
               of cuSOLVER's of the assembled matrix; launch counts read
               around both sweeps.
-  9. the kernels line, the card's name and power limit, and the last line
+  9. flash    the four flash-attention kernels (B8; B9's forward, dQ and
+              dK/dV) through ops.flash_attention_gqa / _or_ref / _gqa_diff
+              and a smollm-135m GQA layer's gqa_apply(allow_flash=True), at
+              the model's full width (H 9, KH 3, D 64), (4, 4096) in bf16
+              and f32 and (1, 32768) in bf16; launch counts read around the
+              path; each kernel against its plain version (the 32k forward
+              against SDPA), the layer against its _sdpa branch; times
+              beside the bound and SDPA's (see flash_phase).
+ 10. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -77,6 +87,7 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet peaks (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 DIFFUSION_OPS_PER_PATCH = 30     # 8 x (2 mul + add) + 2 mul + mul, sub, add, mul
 
 
@@ -89,9 +100,10 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / F32_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -163,6 +175,248 @@ def device_busy_share(torch, fn) -> dict:
     wall, busy, _ = profiled(torch, fn)
     return {"window_ms": wall, "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall)}
+
+
+def flash_phase(torch, dev, gen) -> tuple:
+    """Phase ``flash``: the four flash kernels (B8, B9's forward, dQ and
+    dK/dV) through the reference's own entry points at smollm-135m's
+    attention (H 9, KH 3, D 64), in bfloat16 (the config's dtype) and f32.
+
+    The path, with the launch counts set to 0 just before it and read just
+    after: ``ops.flash_attention_gqa`` at train_4k's sequence (B 4, S 4096,
+    causal) in both types and at prefill_32k's (B 1, S 32768, bf16);
+    ``ops.flash_attention_or_ref`` once; a smollm-135m CONFIG GQA layer
+    (``gqa_apply(allow_flash=True)`` through ``GQAttention``, weights from
+    ``gqa_init``) on x (4, 4096, 576) bf16, one ``flash_attention`` launch;
+    and ``ops.flash_attention_gqa_diff`` forward and backward of
+    ``(out * w).sum()`` with a fixed random w in both types. Then each
+    result is held against its plain version on the card (TF32 off): B8
+    and B9's out against ``flash_attention_ref`` / ``flash_attention_fwd_ref``
+    (f32 within 2e-5, bf16 within 2e-2, the reference's own sweep
+    tolerances), lse within 1e-5, the dQ and dK/dV kernels against
+    ``flash_attention_bwd_ref`` on the same out and lse (f32 2e-4, bf16
+    2e-2), the gradients against autograd through ``flash_attention_ref``
+    (f32 2e-4, the reference's; bf16 2e-2 of the largest gradient: the
+    plain side differentiates the uncast output, the kernels take dsum
+    from the bf16 one), the layer against ``allow_flash=False`` (``_sdpa``,
+    bf16 2e-2), and the 32k forward against SDPA (bf16 2e-2; its plain
+    version's f32 scores alone would take 38.7 GB). Times: CUDA events
+    around back-to-back calls, for the kernels, the plain versions, SDPA
+    and the layer alike.
+    Returns ({(kernel name, dtype): row}, launch counts of the path)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.smollm_135m import CONFIG as LM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "TF32 off for the plain versions")
+    t_phase = time.monotonic()
+    b, s, s_long = 4, 4096, 32768
+    h, kh, d = LM.n_heads, LM.n_kv_heads, LM.resolved_head_dim
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def heads(x):               # (B, S, H, D) -> contiguous (B, H, S, D)
+        return x.transpose(1, 2).contiguous()
+
+    def sdpa(q_, k_, v_):       # the library yardstick, never on the path
+        return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True,
+                                              enable_gqa=True)
+
+    inputs = {dt: (randn((b, s, h, d), dt), randn((b, s, kh, d), dt),
+                   randn((b, s, kh, d), dt), randn((b, s, h, d)))
+              for dt in (f32, bf16)}
+    long_in = tuple(randn((1, s_long, n, d), bf16) for n in (h, kh, kh))
+    layer = attention.GQAttention(LM, attention.gqa_init(LM, gen,
+                                                         device=dev))
+    x = randn((b, s, LM.d_model), bf16)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    mask = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+
+    # -- the path -----------------------------------------------------------
+    ops.reset_kernel_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = {}
+    with torch.no_grad():
+        for dt, (q, k, v, _) in inputs.items():
+            out["b8", dt] = ops.flash_attention_gqa(q, k, v, causal=True)
+        out["long"] = ops.flash_attention_gqa(*long_in, causal=True)
+        q, k, v, _ = inputs[bf16]
+        out["or_ref"] = ops.flash_attention_or_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        before = ops.kernel_launch_counts()["flash_attention"]
+        out["layer"] = layer(x, positions, mask, allow_flash=True)
+        layer_launches = ops.kernel_launch_counts()["flash_attention"] - before
+    for dt, (q, k, v, w) in inputs.items():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention_gqa_diff(*leaves, causal=True)
+        (o.float() * w).sum().backward()
+        out["diff", dt] = (o.detach(), *(t.grad for t in leaves))
+    torch.cuda.synchronize()
+    path_wall = time.perf_counter() - t0
+    launches = ops.kernel_launch_counts()
+    require(layer_launches == 1, f"gqa_apply(allow_flash=True) launched "
+            f"flash_attention {layer_launches} times (want 1)")
+    require(launches["flash_attention"] == 5
+            and launches["flash_attention_fwd"] == 2
+            and launches["flash_attention_dq"] == 2
+            and launches["flash_attention_dkv"] == 2,
+            f"flash path launches {launches}")
+
+    # -- each result against its plain version on the card -----------------
+    tol = {f32: 2e-5, bf16: 2e-2}
+    grad_tol = {f32: 2e-4, bf16: 2e-2}
+    errs, scales = {}, {}
+
+    def hold(name, got, want, rtol, atol=None):
+        errs[name] = err = (got.float() - want.float()).abs().max().item()
+        scales[name] = want.float().abs().max().item()
+        atol = rtol if atol is None else atol
+        require(torch.allclose(got.float(), want.float(), rtol=rtol,
+                               atol=atol),
+                f"{name}: max abs err {err} (rtol {rtol}, atol {atol}), "
+                f"max |want| {scales[name]}")
+
+    rows = {}
+    for dt, (q, k, v, w) in inputs.items():
+        tag = "bf16" if dt == bf16 else "f32"
+        qh, kh_, vh = heads(q), heads(k), heads(v)
+        with torch.no_grad():
+            plain = ref.flash_attention_ref(qh, kh_, vh)
+            hold(f"b8_{tag}", heads(out["b8", dt]), plain, tol[dt])
+            o_fwd, lse = fab.flash_attention_fwd(qh, kh_, vh)
+            out_plain, lse_plain = ref.flash_attention_fwd_ref(qh, kh_, vh)
+            hold(f"fwd_out_{tag}", o_fwd, out_plain, tol[dt])
+            hold(f"fwd_lse_{tag}", lse, lse_plain, 1e-5)
+            require(torch.equal(o_fwd, heads(out["b8", dt])),
+                    f"B9's forward and B8 differ ({tag})")
+            do = heads(w).to(dt)
+            dsum = (do.float() * o_fwd.float()).sum(-1)
+            got_bwd = fab.flash_attention_bwd(qh, kh_, vh, o_fwd, lse, do)
+            want_bwd = ref.flash_attention_bwd_ref(qh, kh_, vh, o_fwd, lse,
+                                                   do)
+            for name, g_, w_ in zip(("dq", "dk_h", "dv_h"), got_bwd,
+                                    want_bwd):
+                hold(f"bwd_{name}_{tag}", g_, w_, grad_tol[dt])
+            del got_bwd, want_bwd
+        leaves = [t.detach().requires_grad_() for t in (qh, kh_, vh)]
+        (ref.flash_attention_ref(*leaves).float() * heads(w)).sum().backward()
+        got = out["diff", dt]
+        hold(f"diff_out_{tag}", heads(got[0]), plain, tol[dt])
+        for name, g_, leaf in zip(("dq", "dk", "dv"), got[1:], leaves):
+            want = leaf.grad
+            scale = want.float().abs().max().item()
+            atol = grad_tol[dt] * (scale if dt == bf16 else 1.0)
+            hold(f"grad_{name}_{tag}", heads(g_), want, grad_tol[dt], atol)
+        del leaves, plain, out_plain, lse_plain
+
+        # times at the path's shapes, on contiguous (B, H, S, D) inputs,
+        # every column between CUDA events around back-to-back calls (each
+        # call keeps the card busy for 0.2-25 ms, far above its launch
+        # cost). Not torch.profiler: at these sizes it has dropped kernel
+        # records of a call, reading less than the call's bytes allow, and
+        # has returned windows with no records at all (PERF.md §6)
+        ops_per_s = BF16_TENSOR_OPS_PER_S if dt == bf16 else F32_OPS_PER_S
+        flops = 2 * b * h * s * s * d           # causal forward
+        item = torch.finfo(dt).bits // 8
+        qo_bytes = b * h * s * d * item          # q, out, dO, dq, dk_h, dv_h
+        kv_bytes = b * kh * s * d * item         # k, v
+        row_bytes = b * h * s * 4                # lse, dsum
+        sdpa_ms = call_ms(torch, lambda: sdpa(qh, kh_, vh), reps=5, inner=5)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (qh, kh_, vh))
+        o_lib = sdpa(ql, kl, vl)
+        sdpa_bwd_ms = call_ms(torch, lambda: torch.autograd.grad(
+            o_lib, (ql, kl, vl), do, retain_graph=True), reps=5, inner=5)
+        del o_lib, ql, kl, vl
+        plain_bwd_ms = call_ms(torch, lambda: ref.flash_attention_bwd_ref(
+            qh, kh_, vh, o_fwd, lse, do), reps=3, inner=1, warmup=1)
+        for name, run, plain_run, work, n_bytes, lib_ms, checks in (
+                ("flash_attention", lambda: fa.flash_attention(qh, kh_, vh),
+                 lambda: ref.flash_attention_ref(qh, kh_, vh), 1.0,
+                 2 * qo_bytes + 2 * kv_bytes, sdpa_ms, ("b8",)),
+                ("flash_attention_fwd",
+                 lambda: fab.flash_attention_fwd(qh, kh_, vh),
+                 lambda: ref.flash_attention_fwd_ref(qh, kh_, vh), 1.0,
+                 2 * qo_bytes + 2 * kv_bytes + row_bytes, sdpa_ms,
+                 ("fwd_out", "fwd_lse")),
+                # Q K^T, dO V^T, dS K: three of the backward's five products
+                ("flash_attention_dq", lambda: fab.flash_attention_dq(
+                    qh, kh_, vh, do, lse, dsum), None, 1.5,
+                 3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, sdpa_bwd_ms,
+                 ("bwd_dq",)),
+                # Q K^T, dO V^T, P^T dO, dS^T Q
+                ("flash_attention_dkv", lambda: fab.flash_attention_dkv(
+                    qh, kh_, vh, do, lse, dsum), None, 2.0,
+                 4 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, sdpa_bwd_ms,
+                 ("bwd_dk_h", "bwd_dv_h"))):
+            b_ms, b_by = bound_ms(n_bytes, work * flops, ops_per_s)
+            r = {"kernel": name, "dtype": tag, "shape": [b, s, h, kh, d],
+                 "causal": True, "timed_by": "cuda_events",
+                 "ms": call_ms(torch, run, reps=5, inner=3),
+                 "plain_ms": (plain_bwd_ms if plain_run is None else
+                              call_ms(torch, plain_run, reps=3, inner=1,
+                                      warmup=1)),
+                 "plain_computes": ("dq, dk_h and dv_h together"
+                                    if plain_run is None else name),
+                 "library_ms": lib_ms,
+                 "library": ("SDPA backward, enable_gqa (dq, dk, dv)"
+                             if plain_run is None else
+                             "SDPA forward, enable_gqa"),
+                 "bound_ms": b_ms, "bound_by": b_by, "flops": work * flops,
+                 "max_abs_err": max(errs[f"{c}_{tag}"] for c in checks)}
+            rows[name, tag] = r
+            emit({"phase": "flash", **r})
+        del o_fwd, lse, do, dsum
+
+    # the 32k forward against SDPA, and the layer against its _sdpa branch
+    ql, kl, vl = (heads(t) for t in long_in)
+    with torch.no_grad():
+        hold("b8_32k_vs_sdpa_bf16", heads(out["long"]), sdpa(ql, kl, vl),
+             tol[bf16])
+        require(torch.equal(out["or_ref"], heads(out["b8", bf16])),
+                "flash_attention_or_ref differs from flash_attention_gqa")
+        layer_plain = layer(x, positions, mask, allow_flash=False)
+        hold("gqa_apply_flash_vs_sdpa_bf16", out["layer"], layer_plain,
+             tol[bf16])
+        long_ms = call_ms(torch, lambda: fa.flash_attention(ql, kl, vl),
+                          reps=3, inner=2, warmup=1)
+        long_sdpa_ms = call_ms(torch, lambda: sdpa(ql, kl, vl), reps=3,
+                               inner=2)
+        layer_ms = {flag: call_ms(torch, lambda: layer(
+            x, positions, mask, allow_flash=flag), reps=5, inner=2)
+            for flag in (True, False)}
+    for t_ in out["layer"], layer_plain, out["long"]:
+        require(bool(torch.isfinite(t_).all()), "flash outputs finite")
+    long_bound = bound_ms((2 * h + 2 * kh) * s_long * d * 2,
+                          2 * h * s_long * s_long * d,
+                          BF16_TENSOR_OPS_PER_S)
+    emit({"phase": "flash", "config": LM.name, "heads": h, "kv_heads": kh,
+          "head_dim": d, "path_wall_s": path_wall, "launches": launches,
+          "layer_flash_launches": layer_launches, "max_abs_err": errs,
+          "max_abs_want": scales,
+          "tolerance": {"out_f32": tol[f32], "out_bf16": tol[bf16],
+                        "lse": 1e-5, "grad_f32": grad_tol[f32],
+                        "grad_bf16": f"{grad_tol[bf16]} x max |grad|"},
+          "prefill_32k": {"shape": [1, s_long, h, kh, d], "dtype": "bf16",
+                          "ms": long_ms, "sdpa_ms": long_sdpa_ms,
+                          "bound_ms": long_bound[0],
+                          "bound_by": long_bound[1]},
+          "gqa_layer_ms": {"allow_flash": layer_ms[True],
+                           "sdpa_branch": layer_ms[False]},
+          "backward_bound_ms_bf16": bound_ms(
+              0, 2.5 * 2 * b * h * s * s * d, BF16_TENSOR_OPS_PER_S)[0],
+          "seconds": time.monotonic() - t_phase})
+    return rows, launches
 
 
 def main() -> int:
@@ -909,11 +1163,18 @@ def main() -> int:
 
     stamp()
 
-    # -- 9. the kernels line, the card, the contract line --------------------
+    # -- 9. flash attention at smollm-135m's full width ----------------------
+    flash_rows, flash_launches = flash_phase(torch, dev, gen)
+    results.update(flash_rows)
+
+    stamp()
+
+    # -- 10. the kernels line, the card, the contract line -------------------
     # (kernel, result key, source, TPU kernel, the path whose run gives the
     # launches); every path's counts are listed beside it
     by_path = {"calibrate": cal_launches, "surrogate": sur_launches,
-               "surrogate_big": big_launches, "gp_chol": gp_launches}
+               "surrogate_big": big_launches, "gp_chol": gp_launches,
+               "flash": flash_launches}
     rows = (
         ("diffuse_evaporate", ("diffuse_evaporate", 640), "diffusion.cu",
          "src/repro/kernels/diffusion.py:89", "calibrate"),
@@ -932,6 +1193,15 @@ def main() -> int:
          "cholesky.cu", "src/repro/kernels/cholesky.py:202", "gp_chol"),
         ("tri_solve", ("tri_solve", False, 512, 50000), "trisolve.cu",
          "src/repro/kernels/cholesky.py:282", "surrogate_big"),
+        # the flash rows: bf16 (the config's dtype) at (4, 4096, 9/3, 64)
+        ("flash_attention", ("flash_attention", "bf16"), "flash.cu",
+         "src/repro/kernels/flash_attention.py:95", "flash"),
+        ("flash_attention_fwd", ("flash_attention_fwd", "bf16"), "flash.cu",
+         "src/repro/kernels/flash_attention_bwd.py:95", "flash"),
+        ("flash_attention_dq", ("flash_attention_dq", "bf16"), "flash.cu",
+         "src/repro/kernels/flash_attention_bwd.py:221", "flash"),
+        ("flash_attention_dkv", ("flash_attention_dkv", "bf16"), "flash.cu",
+         "src/repro/kernels/flash_attention_bwd.py:245", "flash"),
     )
     kernels = []
     for name, key, source, replaces, path in rows:

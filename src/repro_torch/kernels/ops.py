@@ -12,6 +12,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import cholesky as _cholesky
 from repro_torch.kernels import diffusion as _diffusion
 from repro_torch.kernels import dominance as _dominance
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import gp as _gp
 from repro_torch.kernels import ref
 
@@ -24,6 +26,10 @@ KERNELS = {
     "tri_solve": _cholesky.tri_solve_blocked,
     "chol_blocked": _cholesky.chol_blocked,
     "gp_chol_blocked": _cholesky.gp_chol_blocked,
+    "flash_attention": _flash.flash_attention,
+    "flash_attention_fwd": _flash_bwd.flash_attention_fwd,
+    "flash_attention_dq": _flash_bwd.flash_attention_dq,
+    "flash_attention_dkv": _flash_bwd.flash_attention_dkv,
 }
 
 
@@ -39,6 +45,61 @@ def reset_kernel_launch_counts() -> None:
 
 def _on_cpu(x: torch.Tensor) -> bool:
     return x.device.type == "cpu"
+
+
+# --------------------------------------------------------------------------
+# Flash attention
+# --------------------------------------------------------------------------
+def flash_available(q, k, *, block_q=512, block_k=512) -> bool:
+    """Can the kernel take these shapes? q (B, S, H, D), k (B, S, KH, D),
+    the model layout. The reference's on-TPU rule (``d % 8 == 0``,
+    ``s >= 8``, ``h % kh == 0``, S a multiple of min(block, S)), restricted
+    to the head dims the kernel is built for; decided by shape alone, on
+    any device (the reference's interpret-mode grid limit is an artefact of
+    running Pallas on a CPU)."""
+    b, s, h, d = q.shape
+    if d % 8 != 0 or s < 8 or d not in _flash.HEAD_DIMS:
+        return False
+    if h % k.shape[2] != 0:
+        return False
+    return s % min(block_q, s) == 0 and s % min(block_k, s) == 0
+
+
+def _flash_heads(q, k, v, causal, block_q, block_k):
+    """B8 in (B, H, S, D): the plain version for CPU tensors, the kernel
+    otherwise. Not differentiable, as in the reference."""
+    _flash.check_not_differentiated(q, k, v)
+    _flash.check_contract(q, k, v, block_q, block_k)
+    if _on_cpu(q):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return _flash.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                  block_k=block_k)
+
+
+def flash_attention_gqa(q, k, v, *, causal=True, block_q=512, block_k=512):
+    """Model-layout wrapper: q (B, S, H, D), k/v (B, S, KH, D) ->
+    (B, S, H, D)."""
+    out = _flash_heads(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal, block_q, block_k)
+    return out.transpose(1, 2)
+
+
+def flash_attention_gqa_diff(q, k, v, *, causal=True, block_q=512,
+                             block_k=512):
+    """Differentiable flash attention in model layout (the autograd
+    Function with the dQ and dK/dV kernels) — usable inside a loss."""
+    out = _flash_bwd.flash_attention_diff(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
+        block_q, block_k)
+    return out.transpose(1, 2)
+
+
+def flash_attention_or_ref(q, k, v, *, causal=True):
+    """(B, H, S, D) layout: B8 where ``flash_available`` says so (decided
+    before any launch), else the plain version."""
+    if flash_available(q.transpose(1, 2), k.transpose(1, 2)):
+        return _flash_heads(q, k, v, causal, 512, 512)
+    return ref.flash_attention_ref(q, k, v, causal=causal)
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,8 @@ bit count in int64.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -345,3 +347,68 @@ def gp_chol_blocked_ref(x, n, *, kind, lengthscale, nugget, block=256):
                                  nugget=nugget)
              for i in range(nb) for j in range(i + 1)}
     return _chol_left_tiles(tiles, nb, block)
+
+
+# --------------------------------------------------------------------------
+# Flash attention (B8, B9): full S x S matrices in f32
+# --------------------------------------------------------------------------
+def _flash_scores(q, k, causal):
+    """q (B, H, S, D), k (B, KH, S, D) -> f32 scores (B, KH, G, S, S) of
+    q-head h = kv * G + g against kv head kv, divided by sqrt(D), -inf
+    above the diagonal when ``causal``."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    qg = q.reshape(b, kh, h // kh, s, d).float()
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(d)
+    if causal:
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
+    return scores
+
+
+def flash_attention_ref(q, k, v, *, causal=True):
+    """(``repro.kernels.ref.flash_attention_ref``) q (B, H, S, D); k, v
+    (B, KH, S, D): plain softmax attention with GQA in f32, the output cast
+    to q's type."""
+    b, h, s, d = q.shape
+    probs = torch.softmax(_flash_scores(q, k, causal), dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", probs, v.float())
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal=True):
+    """-> (out (B, H, S, D) in q's type, lse (B, H, S) f32) with
+    lse = m + log(max(l, 1e-30)) of each row's max m and denominator
+    l = sum(exp(scores - m)), as the forward kernels write it."""
+    b, h, s, d = q.shape
+    scores = _flash_scores(q, k, causal)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bkgst,bktd->bkgsd", p / l, v.float())
+    lse = m + torch.log(l.clamp_min(1e-30))
+    return out.reshape(b, h, s, d).to(q.dtype), lse.reshape(b, h, s)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, do, *, causal=True):
+    """The Dao backward with full S x S matrices
+    (``repro.kernels.flash_attention_bwd``'s docstring) -> (dq, dk_h,
+    dv_h), each (B, H, S, D) in q's type, dK/dV per q-head. dsum is taken
+    in f32 from ``do`` and the cast ``out``, as the reference does."""
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+
+    def grouped(x):
+        return x.reshape(b, kh, g, s, d).float()
+
+    p = torch.exp(_flash_scores(q, k, causal) - lse.reshape(b, kh, g, s, 1))
+    dof = grouped(do)
+    dsum = (dof * grouped(out)).sum(-1, keepdim=True)
+    dv = torch.einsum("bkgst,bkgsd->bkgtd", p, dof)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dof, v.float())
+    ds = p * (dp - dsum)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.float()) * scale
+    dk = torch.einsum("bkgst,bkgsd->bkgtd", ds, grouped(q)) * scale
+    return tuple(x.reshape(b, h, s, d).to(q.dtype) for x in (dq, dk, dv))

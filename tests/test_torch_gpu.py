@@ -9,8 +9,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (cholesky, diffusion, dominance, gp, ops,  # noqa: E402
-                                 ref)
+from repro_torch.kernels import (cholesky, diffusion, dominance,  # noqa: E402
+                                 flash_attention, flash_attention_bwd, gp,
+                                 ops, ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -71,10 +72,14 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     ops.tri_solve(torch.eye(5, device=cuda), torch.zeros(5, device=cuda))
     ops.chol_factor(torch.eye(5, device=cuda), block=64)
     ops.gp_chol(torch.rand((5, 2), device=cuda), block=64)
+    q = torch.rand((1, 8, 2, 16), device=cuda)
+    ops.flash_attention_gqa(q, q, q)
+    ops.flash_attention_gqa_diff(q.requires_grad_(), q, q).sum().backward()
     assert ops.kernel_launch_counts() == {
         "diffuse_evaporate": 1, "dominance_pass": 1, "dominated_counts": 1,
         "gp_sqdist": 1, "gp_matrix": 1, "tri_solve": 1, "chol_blocked": 1,
-        "gp_chol_blocked": 1}
+        "gp_chol_blocked": 1, "flash_attention": 1, "flash_attention_fwd": 1,
+        "flash_attention_dq": 1, "flash_attention_dkv": 1}
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
@@ -227,6 +232,109 @@ def test_chol_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="kind"):
         cholesky.gp_chol_blocked(torch.zeros((64, 2), device=cuda), 64,
                                  **{**kw, "kind": "sqdist"})
+
+
+# Flash attention (B8, B9): kernel and plain version sum in other orders
+# (online softmax over 64-wide tiles against one softmax over the row); the
+# reference's own tolerances: 2e-5 (f32) and 2e-2 (bf16) for the output
+# (tests/test_kernels.py:30), 2e-4 for the gradients (:140), 1e-5 for lse.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _attention_inputs(dev, b, h, kh, s, d, dtype, seed):
+    g = _gen(dev, seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, h, s, d), (b, kh, s, d), (b, kh, s, d),
+                          (b, h, s, d))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [8, 100, 512])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_kernels_match_plain(cuda, d, s, dtype, causal):
+    """B8, B9's forward, dQ and dK/dV against their plain versions; 6 q
+    heads on 2 kv heads (group 3: head h reads kv head h // 3, not h % 2);
+    S 100 is ragged to the kernels' 64-row tiles."""
+    _no_tf32()
+    q, k, v, do = _attention_inputs(cuda, 2, 6, 2, s, d, dtype, d * s)
+    tol, grad_tol = FLASH_TOL[dtype], FLASH_GRAD_TOL[dtype]
+    out = flash_attention.flash_attention(q, k, v, causal=causal)
+    _close(out, ref.flash_attention_ref(q, k, v, causal=causal), tol)
+    out_fwd, lse = flash_attention_bwd.flash_attention_fwd(q, k, v,
+                                                           causal=causal)
+    assert torch.equal(out_fwd, out)
+    want_out, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal)
+    _close(out_fwd, want_out, tol)
+    _close(lse, want_lse, 1e-5)
+    got = flash_attention_bwd.flash_attention_bwd(q, k, v, out, lse, do,
+                                                  causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, grad_tol)
+
+
+@pytest.mark.parametrize("b,h,kh,s,d", [(1, 2, 2, 64, 16), (2, 4, 2, 128, 32),
+                                        (1, 6, 3, 64, 16), (1, 9, 3, 200, 64)])
+def test_flash_diff_matches_autograd_of_plain(cuda, b, h, kh, s, d):
+    """The autograd Function's gradients (dQ and dK/dV kernels, GQA
+    group-sum outside) against autograd through the plain version, with a
+    non-constant dO; model layout in, as ops hands it over."""
+    _no_tf32()
+    q, k, v, w = _attention_inputs(cuda, b, h, kh, s, d, torch.float32, s)
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+              for t in (q, k, v)]
+    out = ops.flash_attention_gqa_diff(*leaves)
+    (out * w.transpose(1, 2)).sum().backward()
+    plain = [t.detach().requires_grad_() for t in (q, k, v)]
+    (ref.flash_attention_ref(*plain) * w).sum().backward()
+    for got, want in zip(leaves, plain):
+        _close(got.grad.transpose(1, 2), want.grad, 2e-4)
+
+
+def test_gqa_apply_flash_matches_sdpa_on_card(cuda):
+    from repro_torch.configs.smollm_135m import CONFIG
+    from repro_torch.models import attention
+    p = attention.gqa_init(CONFIG, _gen(cuda), device=cuda)
+    x = torch.randn((2, 256, CONFIG.d_model), generator=_gen(cuda, 1),
+                    device=cuda).to(torch.bfloat16)
+    pos = torch.arange(256, device=cuda).expand(2, 256)
+    mask = torch.ones((256, 256), dtype=torch.bool, device=cuda).tril()
+    ops.reset_kernel_launch_counts()
+    with torch.no_grad():
+        flash = attention.gqa_apply(CONFIG, p, x, pos, mask, allow_flash=True)
+        assert ops.kernel_launch_counts()["flash_attention"] == 1
+        plain = attention.gqa_apply(CONFIG, p, x, pos, mask)
+    _close(flash, plain, 2e-2)
+
+
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 2, 64, 16), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention.flash_attention(torch.zeros((1, 2, 64, 8),
+                                                    device=cuda),
+                                        torch.zeros((1, 2, 64, 8),
+                                                    device=cuda),
+                                        torch.zeros((1, 2, 64, 8),
+                                                    device=cuda))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="multiple of block_q"):
+        flash_attention.flash_attention(q, q, q, block_q=48)
+    with pytest.raises(RuntimeError, match="flash_attention_gqa_diff"):
+        flash_attention.flash_attention(q.requires_grad_(), q, q)
 
 
 def test_calibrate_on_cuda_resumes_bitwise(cuda, tmp_path):

@@ -163,10 +163,15 @@ def test_cpu_routing_leaves_kernel_counts_alone():
     ops.tri_solve(torch.eye(5), torch.zeros((5, 2)))
     ops.chol_factor(torch.eye(5), block=64)
     ops.gp_chol(torch.zeros((5, 2)), block=64)
+    q = torch.zeros((1, 8, 2, 16))
+    ops.flash_attention_gqa(q, q, q)
+    ops.flash_attention_or_ref(q, q, q)
+    ops.flash_attention_gqa_diff(q.requires_grad_(), q, q).sum().backward()
     assert ops.kernel_launch_counts() == {
         "diffuse_evaporate": 0, "dominance_pass": 0, "dominated_counts": 0,
         "gp_sqdist": 0, "gp_matrix": 0, "tri_solve": 0, "chol_blocked": 0,
-        "gp_chol_blocked": 0}
+        "gp_chol_blocked": 0, "flash_attention": 0, "flash_attention_fwd": 0,
+        "flash_attention_dq": 0, "flash_attention_dkv": 0}
 
 
 # ---------------------------------------------------------------------------

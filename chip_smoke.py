@@ -206,6 +206,7 @@ def flash_phase(torch, dev, gen) -> tuple:
     Returns ({(kernel name, dtype): row}, launch counts of the path)."""
     import torch.nn.functional as F
 
+    from repro_torch.configs.base import SHAPES
     from repro_torch.configs.smollm_135m import CONFIG as LM
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -218,7 +219,8 @@ def flash_phase(torch, dev, gen) -> tuple:
             and torch.get_float32_matmul_precision() == "highest",
             "TF32 off for the plain versions")
     t_phase = time.monotonic()
-    b, s, s_long = 4, 4096, 32768
+    seq = {shape.name: shape.seq_len for shape in SHAPES}
+    b, s, s_long = 4, seq["train_4k"], seq["prefill_32k"]
     h, kh, d = LM.n_heads, LM.n_kv_heads, LM.resolved_head_dim
     bf16, f32 = torch.bfloat16, torch.float32
 

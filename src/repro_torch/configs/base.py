@@ -16,16 +16,7 @@ Shapes:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
-
-# ---------------------------------------------------------------------------
-# Layer kinds used to describe heterogeneous stacks (Jamba etc.).
-ATTN = "attn"            # full (GQA) self-attention
-MLA_ = "mla"             # multi-head latent attention (DeepSeek-V2)
-SSM = "ssm"              # Mamba-2 SSD layer
-DENSE_FF = "dense"       # dense MLP
-MOE_FF = "moe"           # mixture-of-experts MLP
-NO_FF = "none"           # no feed-forward (pure Mamba-2 blocks)
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +63,7 @@ class ModelConfig:
     head_dim: int = 0                   # 0 -> d_model // n_heads
     # --- heterogeneous stacks -------------------------------------------------
     # Pattern of (mixer, ff) kinds repeated over the stack. Length must divide
-    # n_layers. Default: all (ATTN, DENSE_FF).
+    # n_layers. Default: all ("attn", "dense").
     layer_pattern: Tuple[Tuple[str, str], ...] = ()
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
@@ -119,98 +110,8 @@ class ModelConfig:
     notes: str = ""
 
     @property
-    def padded_vocab(self) -> int:
-        m = self.vocab_multiple
-        return ((self.vocab_size + m - 1) // m) * m
-
-    @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
-
-    @property
-    def pattern(self) -> Tuple[Tuple[str, str], ...]:
-        if self.layer_pattern:
-            assert self.n_layers % len(self.layer_pattern) == 0, (
-                f"{self.name}: pattern len {len(self.layer_pattern)} does not "
-                f"divide n_layers {self.n_layers}")
-            return self.layer_pattern
-        return ((ATTN, DENSE_FF),)
-
-    @property
-    def n_blocks(self) -> int:
-        """Number of repeats of the layer pattern (scan length)."""
-        return self.n_layers // len(self.pattern)
-
-    def microbatches_for(self, shape_name: str) -> int:
-        for k, v in self.microbatches:
-            if k == shape_name:
-                return v
-        return 1
-
-    # ---- parameter counting (for MODEL_FLOPS = 6*N*D roofline term) --------
-    def param_counts(self) -> Tuple[int, int]:
-        """Returns (total_params, active_params) — active differs for MoE."""
-        d, hd = self.d_model, self.resolved_head_dim
-        total = active = 0
-        emb = self.vocab_size * d
-        total += emb * (1 if self.tie_embeddings else 2)
-        active += emb * (1 if self.tie_embeddings else 2)
-        for (mixer, ff) in self.pattern:
-            reps = self.n_blocks
-            if mixer == ATTN:
-                p = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
-                    + self.n_heads * hd * d
-            elif mixer == MLA_:
-                m = self.mla
-                qd = self.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
-                p = d * qd                                  # q proj (full rank)
-                p += d * (m.kv_lora_rank + m.qk_rope_head_dim)  # kv down + rope
-                p += m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim
-                                                      + m.v_head_dim)
-                p += self.n_heads * m.v_head_dim * d        # o proj
-            elif mixer == SSM:
-                s = self.ssm
-                d_in = s.expand * d
-                n_heads = d_in // s.head_dim
-                conv_dim = d_in + 2 * s.n_groups * s.d_state
-                p = d * (2 * d_in + 2 * s.n_groups * s.d_state + n_heads)
-                p += conv_dim * s.d_conv + n_heads + n_heads  # conv, A_log, D
-                p += d_in * d                                # out proj
-            else:
-                raise ValueError(mixer)
-            total += p * reps
-            active += p * reps
-            if ff == DENSE_FF:
-                mult = 3 if self.act == "silu" else 2
-                q = mult * d * self.d_ff
-                total += q * reps
-                active += q * reps
-            elif ff == MOE_FF:
-                mo = self.moe
-                mult = 3 if self.act == "silu" else 2
-                per_expert = mult * d * mo.expert_d_ff
-                shared = mult * d * mo.shared_d_ff if mo.num_shared_experts else 0
-                router = d * mo.num_experts
-                total += (per_expert * mo.num_experts + shared + router) * reps
-                active += (per_expert * mo.top_k + shared + router) * reps
-            elif ff == NO_FF:
-                pass
-            else:
-                raise ValueError(ff)
-        # final norm + per-layer norms (negligible but be exact-ish)
-        total += d * (2 * self.n_layers + 1)
-        active += d * (2 * self.n_layers + 1)
-        if self.is_encoder_decoder:
-            # encoder layers: attn + dense ff + cross-attn in decoder already
-            # counted? Keep simple: add encoder stack + decoder cross-attn.
-            p_attn = 4 * d * d
-            mult = 3 if self.act == "silu" else 2
-            p_ff = mult * d * self.d_ff
-            enc = self.n_encoder_layers * (p_attn + p_ff + 2 * d)
-            xattn = self.n_layers * (4 * d * d + d)
-            total += enc + xattn
-            active += enc + xattn
-        return total, active
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,16 +128,3 @@ SHAPES: Tuple[ShapeConfig, ...] = (
     ShapeConfig("decode_32k", 32768, 128, "decode"),
     ShapeConfig("long_500k", 524288, 1, "decode"),
 )
-
-SHAPES_BY_NAME = {s.name: s for s in SHAPES}
-
-
-def cells_for(cfg: ModelConfig) -> Sequence[Tuple[ModelConfig, ShapeConfig, str]]:
-    """All (cfg, shape, status) cells; status is 'run' or a skip reason."""
-    out = []
-    for s in SHAPES:
-        if s.name == "long_500k" and not cfg.supports_long_context:
-            out.append((cfg, s, "skip: quadratic full attention at 512k"))
-        else:
-            out.append((cfg, s, "run"))
-    return out

@@ -66,14 +66,15 @@ def flash_available(q, k, *, block_q=512, block_k=512) -> bool:
 
 
 def _flash_heads(q, k, v, causal, block_q, block_k):
-    """B8 in (B, H, S, D): the plain version for CPU tensors, the kernel
-    otherwise. Not differentiable, as in the reference."""
+    """B8 in (B, H, S, D): the plain version for CPU tensors, under the
+    kernel's own checks; the kernel, which checks its inputs, otherwise.
+    Not differentiable, as in the reference."""
+    if not _on_cpu(q):
+        return _flash.flash_attention(q, k, v, causal=causal,
+                                      block_q=block_q, block_k=block_k)
     _flash.check_not_differentiated(q, k, v)
     _flash.check_contract(q, k, v, block_q, block_k)
-    if _on_cpu(q):
-        return ref.flash_attention_ref(q, k, v, causal=causal)
-    return _flash.flash_attention(q, k, v, causal=causal, block_q=block_q,
-                                  block_k=block_k)
+    return ref.flash_attention_ref(q, k, v, causal=causal)
 
 
 def flash_attention_gqa(q, k, v, *, causal=True, block_q=512, block_k=512):
@@ -95,9 +96,13 @@ def flash_attention_gqa_diff(q, k, v, *, causal=True, block_q=512,
 
 
 def flash_attention_or_ref(q, k, v, *, causal=True):
-    """(B, H, S, D) layout: B8 where ``flash_available`` says so (decided
-    before any launch), else the plain version."""
-    if flash_available(q.transpose(1, 2), k.transpose(1, 2)):
+    """(B, H, S, D) layout. On the card, as the reference on its own
+    device: always B8, which launches or raises on a shape it cannot take.
+    On the CPU, where the reference runs Pallas in interpret mode only for
+    the shapes ``flash_available`` passes, the plain version either way
+    (under the kernel's checks where it passes)."""
+    if not _on_cpu(q) or flash_available(q.transpose(1, 2),
+                                         k.transpose(1, 2)):
         return _flash_heads(q, k, v, causal, 512, 512)
     return ref.flash_attention_ref(q, k, v, causal=causal)
 

@@ -337,6 +337,21 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda):
         flash_attention.flash_attention(q.requires_grad_(), q, q)
 
 
+@pytest.mark.parametrize("s,d,match", [(1000, 16, "multiple of block_q"),
+                                       (64, 48, "head dims")])
+def test_flash_or_ref_on_the_card_launches_or_raises(cuda, s, d, match):
+    """On the card ``flash_attention_or_ref`` never gives way to the plain
+    version: a shape the kernel cannot take raises before any launch."""
+    q, k, v, _ = _attention_inputs(cuda, 1, 2, 1, s, d, torch.float32, 3)
+    ops.reset_kernel_launch_counts()
+    with pytest.raises(ValueError, match=match):
+        ops.flash_attention_or_ref(q, k, v)
+    assert not any(ops.kernel_launch_counts().values())
+    q, k, v, _ = _attention_inputs(cuda, 1, 2, 1, 64, 16, torch.float32, 3)
+    ops.flash_attention_or_ref(q, k, v)
+    assert ops.kernel_launch_counts()["flash_attention"] == 1
+
+
 def test_calibrate_on_cuda_resumes_bitwise(cuda, tmp_path):
     from repro_torch.launch import explore
     flags = dict(reduced=True, n_islands=2, mu=8, lam=8, steps_per_epoch=1,

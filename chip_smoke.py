@@ -10,7 +10,10 @@ line.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build    nvcc builds every csrc/*.cu, one process per source at once.
+  1. build    nvcc builds every csrc/*.cu, one process per source at once;
+              a second build line lists each flash kernel's registers,
+              spills, dynamic shared memory (bf16) and HGMMA/HMMA count
+              from cuobjdump -sass (a bf16 kernel with none fails).
   2. kernels  each kernel against its plain version at the main paths'
               shapes, dominance also with the +BIG rows that ranking
               writes for empty slots (diffusion and the GP assembly
@@ -66,7 +69,9 @@ Phases (any failure exits non-zero):
               and f32 and (1, 32768) in bf16; launch counts read around the
               path; each kernel against its plain version (the 32k forward
               against SDPA), the layer against its _sdpa branch; times
-              beside the bound and SDPA's (see flash_phase).
+              beside the bound, each kernel in turns with SDPA (median and
+              min/max), and the layer's time split into projections + RoPE,
+              copies and the kernel (see flash_phase).
  10. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
@@ -129,6 +134,65 @@ def call_ms(torch, fn, reps: int = 15, inner: int = 10,
     return statistics.median(samples)
 
 
+def turns_ms(torch, kernel, library, reps: int = 10, inner: int = 3,
+             warmup: int = 2) -> tuple:
+    """``kernel`` and its ``library`` yardstick timed in turns (kernel,
+    library, library, kernel) ``reps`` times, each sample ``inner``
+    back-to-back calls between two CUDA events: -> ({"median", "min",
+    "max", "n"} ms per call of the kernel, the same of the library)."""
+    def sample(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / inner
+
+    for _ in range(warmup):
+        kernel()
+        library()
+    ks, ls = [], []
+    for _ in range(reps):
+        ks.append(sample(kernel))
+        ls.extend((sample(library), sample(library)))
+        ks.append(sample(kernel))
+    return tuple({"median": statistics.median(x), "min": min(x),
+                  "max": max(x), "n": len(x)} for x in (ks, ls))
+
+
+def flash_build_report(build) -> dict:
+    """Every flash kernel of the built library: registers and spills
+    (ptxas -v), the dynamic shared memory of the bf16 kernels, and the
+    count of tensor-core instructions (HGMMA, HMMA) in its SASS. Fails
+    unless every bf16 kernel has some."""
+    import ctypes
+    import re
+    lib = build.load("flash")
+    lib.flash_bf16_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    bf16_kernels = {"flash_fwd_wgmma_kernel": 0, "flash_dq_mma_kernel": 1,
+                    "flash_dkv_mma_kernel": 2}
+    resources = build.kernel_resources(build.build_log("flash"))
+    rows = {}
+    for mangled, counts in build.sass_counts(build.sass("flash"),
+                                             ("HGMMA", "HMMA")).items():
+        m = re.search(r"(flash_\w+?_kernel)ILi(\d+)E", mangled)
+        require(m is not None, f"unknown kernel {mangled} in flash.cu")
+        kernel, d = m.group(1), int(m.group(2))
+        row = {**resources.get(mangled, {}), **counts}
+        if kernel in bf16_kernels:
+            row["smem_bytes"] = lib.flash_bf16_smem_bytes(
+                bf16_kernels[kernel], d)
+            require(counts["HGMMA"] + counts["HMMA"] > 0,
+                    f"bf16 kernel {kernel}<{d}> runs no tensor-core "
+                    f"instruction")
+        rows[f"{kernel}<{d}>"] = row
+    require(len(rows) == 24, f"flash.cu: 24 kernels expected, got "
+            f"{sorted(rows)}")
+    return rows
+
+
 def profiled(torch, fn, reps: int = 1, tries: int = 3):
     """(wall ms, summed CUDA kernel time ms, {kernel name: summed ms}) of
     ``reps`` calls of ``fn`` under torch.profiler (CUPTI kernel records;
@@ -177,6 +241,47 @@ def device_busy_share(torch, fn) -> dict:
             "idle_share": max(0.0, 1.0 - busy / wall)}
 
 
+def layer_split_ms(torch, cfg, params, x, positions, reps: int = 10,
+                   warmup: int = 2) -> dict:
+    """The flash branch of ``gqa_apply`` taken apart, its steps run in its
+    order between CUDA events: the q/k/v projections and RoPE (``_qkv``),
+    the copies of q, k, v to contiguous (B, H, S, D) that ``ops`` and the
+    wrapper make, the kernel (B8) and the output projection (an einsum
+    over the kernel's transposed output). Medians over ``reps`` passes
+    after ``warmup``, ms: projections_rope (_qkv plus the output
+    projection), copies, kernel, and their sum beside the whole pass."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+
+    steps = {"qkv_rope": [], "copies": [], "kernel": [], "out_proj": [],
+             "whole": []}
+    with torch.no_grad():
+        for i in range(warmup + reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            q, k, v = attention._qkv(cfg, params, x, positions)
+            ev[1].record()
+            q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            ev[2].record()
+            out = fa.flash_attention(q, k, v, causal=True)
+            ev[3].record()
+            torch.einsum("bshk,hkd->bsd", out.transpose(1, 2), params["wo"])
+            ev[4].record()
+            ev[4].synchronize()
+            if i < warmup:
+                continue
+            for j, name in enumerate(("qkv_rope", "copies", "kernel",
+                                      "out_proj")):
+                steps[name].append(ev[j].elapsed_time(ev[j + 1]))
+            steps["whole"].append(ev[0].elapsed_time(ev[4]))
+    med = {name: statistics.median(t) for name, t in steps.items()}
+    return {"projections_rope": med["qkv_rope"] + med["out_proj"],
+            "qkv_rope": med["qkv_rope"], "out_proj": med["out_proj"],
+            "copies": med["copies"], "kernel": med["kernel"],
+            "sum_of_parts": med["qkv_rope"] + med["copies"] + med["kernel"]
+            + med["out_proj"], "whole_pass": med["whole"], "reps": reps}
+
+
 def flash_phase(torch, dev, gen) -> tuple:
     """Phase ``flash``: the four flash kernels (B8, B9's forward, dQ and
     dK/dV) through the reference's own entry points at smollm-135m's
@@ -202,7 +307,9 @@ def flash_phase(torch, dev, gen) -> tuple:
     bf16 2e-2), and the 32k forward against SDPA (bf16 2e-2; its plain
     version's f32 scores alone would take 38.7 GB). Times: CUDA events
     around back-to-back calls, for the kernels, the plain versions, SDPA
-    and the layer alike.
+    and the layer alike; each kernel and the 32k forward in turns with
+    SDPA (``turns_ms``), and the layer's flash branch step by step
+    (``layer_split_ms``).
     Returns ({(kernel name, dtype): row}, launch counts of the path)."""
     import torch.nn.functional as F
 
@@ -325,59 +432,70 @@ def flash_phase(torch, dev, gen) -> tuple:
         # times at the path's shapes, on contiguous (B, H, S, D) inputs,
         # every column between CUDA events around back-to-back calls (each
         # call keeps the card busy for 0.2-25 ms, far above its launch
-        # cost). Not torch.profiler: at these sizes it has dropped kernel
-        # records of a call, reading less than the call's bytes allow, and
-        # has returned windows with no records at all (PERF.md §6)
+        # cost), each kernel in turns with its SDPA yardstick (kernel,
+        # SDPA, SDPA, kernel; 10 rounds). Not torch.profiler: at these
+        # sizes it has dropped kernel records of a call and has returned
+        # windows with no records at all (PERF.md §6)
         ops_per_s = BF16_TENSOR_OPS_PER_S if dt == bf16 else F32_OPS_PER_S
         flops = 2 * b * h * s * s * d           # causal forward
         item = torch.finfo(dt).bits // 8
         qo_bytes = b * h * s * d * item          # q, out, dO, dq, dk_h, dv_h
         kv_bytes = b * kh * s * d * item         # k, v
         row_bytes = b * h * s * 4                # lse, dsum
-        sdpa_ms = call_ms(torch, lambda: sdpa(qh, kh_, vh), reps=5, inner=5)
         ql, kl, vl = (t.detach().requires_grad_() for t in (qh, kh_, vh))
         o_lib = sdpa(ql, kl, vl)
-        sdpa_bwd_ms = call_ms(torch, lambda: torch.autograd.grad(
-            o_lib, (ql, kl, vl), do, retain_graph=True), reps=5, inner=5)
-        del o_lib, ql, kl, vl
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                sdpa(qh, kh_, vh)
+
+        def sdpa_bwd():
+            torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True)
+
         plain_bwd_ms = call_ms(torch, lambda: ref.flash_attention_bwd_ref(
             qh, kh_, vh, o_fwd, lse, do), reps=3, inner=1, warmup=1)
-        for name, run, plain_run, work, n_bytes, lib_ms, checks in (
+        for name, run, plain_run, work, n_bytes, lib_run, checks in (
                 ("flash_attention", lambda: fa.flash_attention(qh, kh_, vh),
                  lambda: ref.flash_attention_ref(qh, kh_, vh), 1.0,
-                 2 * qo_bytes + 2 * kv_bytes, sdpa_ms, ("b8",)),
+                 2 * qo_bytes + 2 * kv_bytes, sdpa_fwd, ("b8",)),
                 ("flash_attention_fwd",
                  lambda: fab.flash_attention_fwd(qh, kh_, vh),
                  lambda: ref.flash_attention_fwd_ref(qh, kh_, vh), 1.0,
-                 2 * qo_bytes + 2 * kv_bytes + row_bytes, sdpa_ms,
+                 2 * qo_bytes + 2 * kv_bytes + row_bytes, sdpa_fwd,
                  ("fwd_out", "fwd_lse")),
                 # Q K^T, dO V^T, dS K: three of the backward's five products
                 ("flash_attention_dq", lambda: fab.flash_attention_dq(
                     qh, kh_, vh, do, lse, dsum), None, 1.5,
-                 3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, sdpa_bwd_ms,
+                 3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, sdpa_bwd,
                  ("bwd_dq",)),
                 # Q K^T, dO V^T, P^T dO, dS^T Q
                 ("flash_attention_dkv", lambda: fab.flash_attention_dkv(
                     qh, kh_, vh, do, lse, dsum), None, 2.0,
-                 4 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, sdpa_bwd_ms,
+                 4 * qo_bytes + 2 * kv_bytes + 2 * row_bytes, sdpa_bwd,
                  ("bwd_dk_h", "bwd_dv_h"))):
             b_ms, b_by = bound_ms(n_bytes, work * flops, ops_per_s)
+            k_t, lib_t = turns_ms(torch, run, lib_run)
             r = {"kernel": name, "dtype": tag, "shape": [b, s, h, kh, d],
-                 "causal": True, "timed_by": "cuda_events",
-                 "ms": call_ms(torch, run, reps=5, inner=3),
+                 "causal": True, "timed_by": "cuda_events, in turns",
+                 "ms": k_t["median"], "ms_min_max": [k_t["min"], k_t["max"]],
                  "plain_ms": (plain_bwd_ms if plain_run is None else
                               call_ms(torch, plain_run, reps=3, inner=1,
                                       warmup=1)),
                  "plain_computes": ("dq, dk_h and dv_h together"
                                     if plain_run is None else name),
-                 "library_ms": lib_ms,
+                 "library_ms": lib_t["median"],
+                 "library_ms_min_max": [lib_t["min"], lib_t["max"]],
+                 "samples": k_t["n"],
                  "library": ("SDPA backward, enable_gqa (dq, dk, dv)"
                              if plain_run is None else
                              "SDPA forward, enable_gqa"),
                  "bound_ms": b_ms, "bound_by": b_by, "flops": work * flops,
+                 "tflops": work * flops / k_t["median"] / 1e9,
+                 "bound_share": b_ms / k_t["median"],
                  "max_abs_err": max(errs[f"{c}_{tag}"] for c in checks)}
             rows[name, tag] = r
             emit({"phase": "flash", **r})
+        del o_lib, ql, kl, vl
         del o_fwd, lse, do, dsum
 
     # the 32k forward against SDPA, and the layer against its _sdpa branch
@@ -390,13 +508,14 @@ def flash_phase(torch, dev, gen) -> tuple:
         layer_plain = layer(x, positions, mask, allow_flash=False)
         hold("gqa_apply_flash_vs_sdpa_bf16", out["layer"], layer_plain,
              tol[bf16])
-        long_ms = call_ms(torch, lambda: fa.flash_attention(ql, kl, vl),
-                          reps=3, inner=2, warmup=1)
-        long_sdpa_ms = call_ms(torch, lambda: sdpa(ql, kl, vl), reps=3,
-                               inner=2)
+        long_t, long_sdpa_t = turns_ms(
+            torch, lambda: fa.flash_attention(ql, kl, vl),
+            lambda: sdpa(ql, kl, vl), reps=5, inner=2, warmup=1)
         layer_ms = {flag: call_ms(torch, lambda: layer(
             x, positions, mask, allow_flash=flag), reps=5, inner=2)
             for flag in (True, False)}
+        layer_parts = layer_split_ms(torch, LM, layer.params(), x,
+                                     positions)
     for t_ in out["layer"], layer_plain, out["long"]:
         require(bool(torch.isfinite(t_).all()), "flash outputs finite")
     long_bound = bound_ms((2 * h + 2 * kh) * s_long * d * 2,
@@ -410,11 +529,16 @@ def flash_phase(torch, dev, gen) -> tuple:
                         "lse": 1e-5, "grad_f32": grad_tol[f32],
                         "grad_bf16": f"{grad_tol[bf16]} x max |grad|"},
           "prefill_32k": {"shape": [1, s_long, h, kh, d], "dtype": "bf16",
-                          "ms": long_ms, "sdpa_ms": long_sdpa_ms,
+                          "ms": long_t["median"],
+                          "ms_min_max": [long_t["min"], long_t["max"]],
+                          "sdpa_ms": long_sdpa_t["median"],
+                          "sdpa_ms_min_max": [long_sdpa_t["min"],
+                                              long_sdpa_t["max"]],
                           "bound_ms": long_bound[0],
                           "bound_by": long_bound[1]},
           "gqa_layer_ms": {"allow_flash": layer_ms[True],
-                           "sdpa_branch": layer_ms[False]},
+                           "sdpa_branch": layer_ms[False],
+                           "allow_flash_split": layer_parts},
           "backward_bound_ms_bf16": bound_ms(
               0, 2.5 * 2 * b * h * s * s * d, BF16_TENSOR_OPS_PER_S)[0],
           "seconds": time.monotonic() - t_phase})
@@ -460,6 +584,7 @@ def main() -> int:
           "ptxas": {name: [line.strip() for line in build.build_log(name)
                            .splitlines() if "registers" in line]
                     for name in build.SOURCES}})
+    emit({"phase": "build", "flash_kernels": flash_build_report(build)})
 
     # -- 2. kernels against their plain versions ----------------------------
     def field(n, w=72):

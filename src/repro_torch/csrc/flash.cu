@@ -1,83 +1,98 @@
 // Flash attention with GQA for sm_90a: the forward (with an optional row
-// logsumexp), and the backward's dQ and dK/dV kernels.
+// logsumexp), and the backward's dQ and dK/dV kernels, each in a bf16
+// version on the tensor cores and an f32 version on the CUDA cores.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (B8, the
 // Pallas TPU kernel _flash_kernel) and
 // src/repro/kernels/flash_attention_bwd.py (B9): flash_attention_fwd
 // (_fwd_kernel), and flash_attention_bwd's _dq_kernel and _dkv_kernel. The
-// forward kernel serves both B8 (lse == nullptr) and B9's forward.
+// forward kernels serve both B8 (lse == nullptr) and B9's forward.
 //
 // Layout: q, dout, out, dq, dk_h, dv_h are (B, H, S, D) row-major; k, v are
 // (B, KH, S, D); lse and dsum are (B, H, S) f32. q-head h reads kv head
-// h / (H / KH). Inputs are f32 or bf16 (read through __bfloat162float);
-// every sum runs in f32; outputs are written in the input type (bf16
-// through __float2bfloat16_rn, round to nearest even, as JAX's astype).
+// h / (H / KH). Every sum runs in f32; outputs are written in the input
+// type (bf16 through round to nearest even, as JAX's astype).
 //
 // Bound on the H100: operations. A causal forward does 2 B H S^2 D flops
 // (half of the 4 B H S^2 D of Q K^T and P V), the backward 2.5 times that;
 // at smollm-135m's attention (B 4, H 9, KH 3, S 4096, D 64) that is 77
-// GFLOP forward on 50 MB of q, k, v and out in bf16 (101 MB in f32), far
-// above the card's ridge point either way. These kernels do plain
-// f32 FMAs on the CUDA cores (67 TFLOP/s of f32 at the most), no tensor
-// cores, no TMA: a simple kernel that is right comes first, and it is held
-// to its plain PyTorch version (repro_torch/kernels/ref.py) within a
-// stated tolerance.
+// GFLOP forward (0.078 ms at the 989 TFLOP/s of bf16 tensor cores) and
+// 193 GFLOP backward (0.195 ms) on 50 MB of q, k, v and out in bf16, far
+// above the card's ridge point.
 //
-// Design. The TPU kernels run a sequential k-block (or q-block) grid axis
-// with the running state in VMEM scratch. Here one block of 256 threads
-// owns one 64-row tile and loops over the other axis itself:
-//  * flash_fwd_kernel: one block per (q-tile, q-head, batch); it streams
-//    the 64-row k/v tiles of its kv head through shared memory and keeps
-//    the running max, denominator and accumulator of its rows in
-//    registers. The causal loop stops at the diagonal tile: tiles wholly
-//    above it are never visited. Every row starts at tile 0, whose key 0
-//    is visible to every row, so the running max is finite after the first
-//    tile and a masked score (-inf) contributes exp(-inf) = 0; no -1e30
-//    sentinel is needed.
-//  * flash_dq_kernel: one block per (q-tile, q-head, batch), looping over
-//    k-tiles: P = exp(S - lse), dS = P (dO V^T - dsum), dQ += dS K.
-//  * flash_dkv_kernel: one block per (k-tile, q-head, batch), looping over
-//    q-tiles: dV += P^T dO, dK += dS^T Q; per q-head dK and dV, group-summed
-//    by the caller as in the reference.
-// Thread (tx, ty) of 16 x 16 owns rows ty + 16 a (a < 4) and columns
-// tx + 16 c of every 64 x 64 score tile and of the 64 x D accumulators, so
-// a row's max and sum are shuffles among the 16 lanes of one half-warp.
-// Tiles of q, k, v, dO sit in shared memory with row stride D + 1 (no bank
-// conflicts when 16 lanes read one column of 16 rows); S is not a multiple
-// of 64 in general, so loads zero the rows past S, key columns past S are
-// masked and rows past S are not written. More than 48 KB of dynamic shared
-// memory (up to 162 KB for dK/dV at D 128) is opted into per kernel with
+// bf16, on the tensor cores (flash_mma.cuh has the building blocks: tiles
+// kept in bf16 in shared memory under the hardware's XOR swizzle,
+// asynchronous copies, ldmatrix, mma.sync and wgmma in inline PTX):
+//  * flash_fwd_wgmma_kernel: one block per (128 q rows, q-head, batch),
+//    the longest causal rows first. One producer warp keeps the q tile and
+//    a two-stage ring of 128-key k/v tiles in flight with TMA (tensor maps
+//    made per call; rows past S arrive as zeros), each stage signalled by
+//    an mbarrier; two consumer warpgroups of 64 rows each run S = Q K^T
+//    as wgmma m64n128k16 from shared memory, the online softmax (running
+//    max, denominator, rescale) in f32 registers, and O += P V as wgmma
+//    with P rounded to bf16 in registers as the A operand and V read
+//    through the transposed-B descriptor, then free the stage.
+//  * flash_dq_mma_kernel: one block of 8 warps per (128 q rows, q-head,
+//    batch); each warp holds 16 rows of Q and dO as mma.sync fragments and
+//    loops over 64-key k/v tiles (cp.async, two stages): S = Q K^T and
+//    dP = dO V^T, P = exp(S - lse), dS = P (dP - dsum) in f32, and
+//    dQ += dS K with dS rounded to bf16 as the A operand.
+//  * flash_dkv_mma_kernel: one block of 8 warps per (128 keys, q-head,
+//    batch), the first keys (the most causal rows) first; each warp owns
+//    16 keys and loops over 64-row q/dO tiles (cp.async, two stages, with
+//    their lse and dsum): S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and
+//    dK += dS^T Q with P^T and dS^T rounded to bf16 as A operands; per
+//    q-head dK and dV, group-summed by the caller as in the reference.
+// The causal loop stops at the diagonal tile and only tiles that cross the
+// diagonal (or the ragged end of S) are masked. Every row starts at tile
+// 0, whose key 0 it sees, so the running max is finite after the first
+// tile and a masked score (-inf) contributes exp(-inf) = 0: no -1e30
+// sentinel is needed.
+//
+// f32, on the CUDA cores (flash_fwd_kernel, flash_dq_kernel,
+// flash_dkv_kernel): the f32 FMAs hold the 2e-5 gate against the plain
+// version, which TF32 tensor cores would not. One block of 256 threads
+// owns one 64-row tile and loops over the other axis; thread (tx, ty) of
+// 16 x 16 owns rows ty + 16 a (a < 4) and columns tx + 16 c of every
+// 64 x 64 score tile and of the 64 x D accumulators, so a row's max and sum
+// are shuffles among the 16 lanes of one half-warp. Tiles sit in shared
+// memory in f32 with row stride D + 1 (no bank conflicts when 16 lanes
+// read one column of 16 rows); rows past S load as zeros, key columns past
+// S are masked and rows past S are not written.
+//
+// More than 48 KB of dynamic shared memory is opted into per kernel with
 // cudaFuncSetAttribute.
+//
+// Times on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase flash,
+// (4, 4096, 9/3, 64), causal): see PERF.md section 6.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 #include <math.h>
 
+#include <type_traits>
+
+#include "flash_mma.cuh"
+
 namespace {
+
 
 constexpr int kTile = 64;            // rows of a q tile and of a k tile
 constexpr int kThreads = 256;        // 16 x 16
 constexpr int kPadP = kTile + 1;     // row stride of a 64 x 64 score tile
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // Rows [row0, row0 + 64) of the (S, D) matrix at src into dst (row stride
 // D + 1), in f32; rows at or past S are zero.
-template <int D, typename T>
-__device__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+template <int D>
+__device__ void load_tile(float* dst, const float* __restrict__ src, int row0,
                           int s) {
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int row = row0 + r;
     dst[r * (D + 1) + c] =
-        row < s ? to_f(src[static_cast<size_t>(row) * D + c]) : 0.0f;
+        row < s ? src[static_cast<size_t>(row) * D + c] : 0.0f;
   }
 }
 
@@ -140,10 +155,10 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int s, int h, int group,
                  int causal, float scale) {
   constexpr int NC = D / 16;
@@ -213,21 +228,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty + 16 * i;
     if (row >= s) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + q_base + static_cast<size_t>(row) * D;
+    float* o = out + q_base + static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) put(o + tx + 16 * c, acc[i][c] / denom);
+    for (int c = 0; c < NC; ++c) o[tx + 16 * c] = acc[i][c] / denom;
     if (lse != nullptr && tx == 0) {
       lse[(static_cast<size_t>(bi) * h + hi) * s + row] = m[i] + logf(denom);
     }
   }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ dsum,
-                T* __restrict__ dq, int s, int h, int group, int causal,
+                float* __restrict__ dq, int s, int h, int group, int causal,
                 float scale) {
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
@@ -286,19 +301,19 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= s) continue;
-    T* o = dq + q_base + static_cast<size_t>(row) * D;
+    float* o = dq + q_base + static_cast<size_t>(row) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) put(o + tx + 16 * c, acc[i][c] * scale);
+    for (int c = 0; c < NC; ++c) o[tx + 16 * c] = acc[i][c] * scale;
   }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ dsum, T* __restrict__ dk,
-                 T* __restrict__ dv, int s, int h, int group, int causal,
+                 const float* __restrict__ dsum, float* __restrict__ dk,
+                 float* __restrict__ dv, int s, int h, int group, int causal,
                  float scale) {
   constexpr int NC = D / 16;
   extern __shared__ float smem[];
@@ -364,23 +379,559 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = k0 + ty + 16 * i;
     if (row >= s) continue;
-    T* ok = dk + q_base + static_cast<size_t>(row) * D;
-    T* ov = dv + q_base + static_cast<size_t>(row) * D;
+    float* ok = dk + q_base + static_cast<size_t>(row) * D;
+    float* ov = dv + q_base + static_cast<size_t>(row) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      put(ok + tx + 16 * c, acc_k[i][c] * scale);
-      put(ov + tx + 16 * c, acc_v[i][c]);
+      ok[tx + 16 * c] = acc_k[i][c] * scale;
+      ov[tx + 16 * c] = acc_v[i][c];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+constexpr int kFwdRows = 128;      // q rows of a forward block
+constexpr int kFwdKeys = 128;      // keys of a k/v tile
+constexpr int kFwdStages = 2;      // k/v tiles in flight
+constexpr int kFwdThreads = 288;   // two consumer warpgroups, a producer warp
+
+constexpr int kBwdThreads = 256;   // 8 warps of 16 rows (dQ) or keys (dK/dV)
+constexpr int kDqRows = 128;       // q rows of a dQ block
+constexpr int kDqKeys = 64;        // keys of a k/v tile in the dQ kernel
+constexpr int kDkvKeys = 128;      // keys of a dK/dV block
+constexpr int kDkvRows = 64;       // q rows of a q/dO tile in the dK/dV kernel
+
+// bf16 bytes of a tile of `rows` rows
+template <int D>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return rows * D * 2;
+}
+
+// Dynamic shared memory of each kernel: 1024 bytes of slack to align the
+// tiles to the swizzle's 1024-byte period, then the tiles (and, forward,
+// the barriers; dK/dV, the staged lse and dsum).
+template <int D>
+constexpr size_t fwd_smem_bytes() {
+  return 1024 + tile_bytes<D>(kFwdRows) +
+         2 * kFwdStages * tile_bytes<D>(kFwdKeys) + 8 * (1 + 2 * kFwdStages);
+}
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return 1024 + 2 * tile_bytes<D>(kDqRows) + 4 * tile_bytes<D>(kDqKeys);
+}
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return 1024 + 2 * tile_bytes<D>(kDkvKeys) + 4 * tile_bytes<D>(kDkvRows) +
+         4 * kDkvRows * sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t aligned_smem(const void* raw) {
+  return (flash_mma::smem_addr(raw) + 1023u) & ~1023u;
+}
+
+// The `rows`-row tile of rows [row0, row0 + rows) of (batch x head) bh,
+// by TMA into dst, completing `bar` (two boxes of 64 columns at D 128).
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row0, int bh,
+                                         int rows) {
+#pragma unroll
+  for (int half = 0; half < (D == 128 ? 2 : 1); ++half) {
+    flash_mma::tma_load_3d(dst + half * rows * 128, map, bar, half * 64, row0,
+                           bh);
+  }
+}
+
+// Byte offset of k-step kk (16 columns of the head dim) within a tile of
+// `rows` rows: a wgmma K-major descriptor starts there.
+template <int D>
+__device__ __forceinline__ uint32_t kstep_offset(int kk, int rows) {
+  if constexpr (D == 128) return (kk / 4) * rows * 128 + (kk % 4) * 32;
+  return kk * 32;
+}
+
+// d (m64nN) += A B, A from registers, N = 16, 32 or 64.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 16) {
+    flash_mma::wgmma_rs_m64n16k16(d, a, desc_b);
+  } else if constexpr (N == 32) {
+    flash_mma::wgmma_rs_m64n32k16(d, a, desc_b);
+  } else {
+    flash_mma::wgmma_rs_m64n64k16(d, a, desc_b);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       bf16* __restrict__ out, float* __restrict__ lse,
+                       int s, int h, int group, int causal, float scale) {
+  using namespace flash_mma;
+  constexpr int W = swizzle_bytes<D>();   // bytes of a swizzled row
+  constexpr int DN = D < 64 ? D : 64;     // n of a P V product
+  constexpr int NH = D / DN;              // P V products per k-step
+  constexpr uint32_t kQBytes = tile_bytes<D>(kFwdRows);
+  constexpr uint32_t kKVBytes = tile_bytes<D>(kFwdKeys);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s_q = aligned_smem(smem_raw);
+  const uint32_t s_kv = s_q + kQBytes;   // stage st: k, then v
+  const uint32_t q_full = s_kv + 2 * kFwdStages * kKVBytes;
+  auto full = [&](int st) { return q_full + 8 + 8 * st; };
+  auto empty = [&](int st) { return q_full + 8 + 8 * (kFwdStages + st); };
+
+  const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
+  const int bh = blockIdx.x, hi = bh % h;
+  const int kvh = (bh / h) * (h / group) + hi / group;
+  const int q0 = qt * kFwdRows;
+  const int nk = causal ? qt + 1 : (s + kFwdKeys - 1) / kFwdKeys;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), 8);   // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {   // the producer
+    if (lane == 0) {
+      mbar_expect_tx(q_full, kQBytes);
+      tma_tile<D>(s_q, &tm_q, q_full, q0, bh, kFwdRows);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % kFwdStages;
+        mbar_wait(empty(st), ((kt / kFwdStages) & 1) ^ 1);
+        mbar_expect_tx(full(st), 2 * kKVBytes);
+        const uint32_t k_tile = s_kv + st * 2 * kKVBytes;
+        tma_tile<D>(k_tile, &tm_k, full(st), kt * kFwdKeys, kvh, kFwdKeys);
+        tma_tile<D>(k_tile + kKVBytes, &tm_v, full(st), kt * kFwdKeys, kvh,
+                    kFwdKeys);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the block;
+  // this thread rows wr and wr + 8 of them, key columns 8 j + 2 t, + 1
+  const int wg = warp / 4;
+  const int wr = (warp % 4) * 16 + lane / 4, t = lane % 4;
+  const int row0 = q0 + wg * 64 + wr;
+  const float scale_log2 = scale * kLog2e;
+  float o[NH][DN / 2];
+#pragma unroll
+  for (int hf = 0; hf < NH; ++hf) {
+#pragma unroll
+    for (int i = 0; i < DN / 2; ++i) o[hf][i] = 0.0f;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % kFwdStages;
+    const uint32_t k_tile = s_kv + st * 2 * kKVBytes;
+    const uint32_t v_tile = k_tile + kKVBytes;
+    mbar_wait(full(st), (kt / kFwdStages) & 1);
+
+    float sc[kFwdKeys / 2];
+#pragma unroll
+    for (int i = 0; i < kFwdKeys / 2; ++i) sc[i] = 0.0f;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_m64n128k16(
+          sc,
+          wgmma_desc<D>(s_q + kstep_offset<D>(kk, kFwdRows) + wg * 64 * W, 16,
+                        8 * W),
+          wgmma_desc<D>(k_tile + kstep_offset<D>(kk, kFwdKeys), 16, 8 * W),
+          1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    const int k0 = kt * kFwdKeys;
+    if ((causal && kt == nk - 1) || k0 + kFwdKeys > s) {
+#pragma unroll
+      for (int j = 0; j < kFwdKeys / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = row0 + 8 * (e >> 1);
+          if (kpos >= s || (causal && kpos > qpos)) sc[4 * j + e] = -INFINITY;
+        }
+      }
+    }
+    // online softmax in the log2 domain: rows wr (e = 0, 1), wr + 8 (2, 3)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kFwdKeys / 8; ++j) {
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      const float alpha = exp2f(m[r] - m_new);   // 0 at the first tile
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kFwdKeys / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(sc[4 * j + 2 * r + e] * scale_log2 - m_new);
+          sc[4 * j + 2 * r + e] = p;
+          sum += p;
+        }
+      }
+      l[r] = alpha * l[r] + sum;   // this thread's columns; summed at the end
+      m[r] = m_new;
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf) {
+#pragma unroll
+        for (int j = 0; j < DN / 8; ++j) {
+          o[hf][4 * j + 2 * r] *= alpha;
+          o[hf][4 * j + 2 * r + 1] *= alpha;
+        }
+      }
+    }
+    uint32_t pa[kFwdKeys / 16][4];
+    wgmma_acc_to_a(pa, sc);
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) fence_regs(o[hf]);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf) {
+        wgmma_rs<DN>(o[hf], pa[kk],
+                     wgmma_desc<D>(v_tile + hf * kFwdKeys * 128 + kk * 16 * W,
+                                   8 * W, 8 * W));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) fence_regs(o[hf]);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= s) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    bf16* orow = out + (static_cast<size_t>(bh) * s + row) * D;
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) {
+#pragma unroll
+      for (int j = 0; j < DN / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + hf * 64 + 8 * j + 2 * t) =
+            pack_bf16(o[hf][4 * j + 2 * r] / denom,
+                      o[hf][4 * j + 2 * r + 1] / denom);
+      }
+    }
+    if (lse != nullptr && t == 0) {
+      lse[static_cast<size_t>(bh) * s + row] = (m[r] + log2f(denom)) * kLn2;
     }
   }
 }
 
 template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ dsum, bf16* __restrict__ dq,
+                    int s, int h, int group, int causal, float scale) {
+  using namespace flash_mma;
+  constexpr int KS = D / 16;   // k-steps along the head dim
+  constexpr int NT = D / 8;    // n-tiles along the head dim
+  constexpr uint32_t kQBytes = tile_bytes<D>(kDqRows);
+  constexpr uint32_t kKBytes = tile_bytes<D>(kDqKeys);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s_q = aligned_smem(smem_raw);
+  const uint32_t s_do = s_q + kQBytes;
+  const uint32_t s_kv = s_do + kQBytes;   // stage st: k, then v
+
+  const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
+  const int bh = blockIdx.x, hi = bh % h;
+  const int kvh = (bh / h) * (h / group) + hi / group;
+  const size_t q_base = static_cast<size_t>(bh) * s * D;
+  const size_t kv_base = static_cast<size_t>(kvh) * s * D;
+  const int q0 = qt * kDqRows;
+  const int n_tiles = (s + kDqKeys - 1) / kDqKeys;
+  const int nk =
+      causal ? min(n_tiles, (q0 + kDqRows + kDqKeys - 1) / kDqKeys) : n_tiles;
+  load_tile_async<D, kDqRows, kBwdThreads>(s_q, q + q_base, q0, s);
+  load_tile_async<D, kDqRows, kBwdThreads>(s_do, dout + q_base, q0, s);
+  load_tile_async<D, kDqKeys, kBwdThreads>(s_kv, k + kv_base, 0, s);
+  load_tile_async<D, kDqKeys, kBwdThreads>(s_kv + kKBytes, v + kv_base, 0, s);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16, t = lane % 4;
+  const int row_a = q0 + r0 + lane / 4;   // and row_a + 8
+  const float scale_log2 = scale * kLog2e;
+  float row_lse[2], row_dsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const size_t at = static_cast<size_t>(bh) * s + row;
+    row_lse[r] = row < s ? lse[at] * kLog2e : 0.0f;
+    row_dsum[r] = row < s ? dsum[at] : 0.0f;
+  }
+  float acc[NT][4] = {};
+  uint32_t qa[KS][4], da[KS][4];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {
+      const uint32_t next = s_kv + (st ^ 1) * 2 * kKBytes;
+      load_tile_async<D, kDqKeys, kBwdThreads>(next, k + kv_base,
+                                               (kt + 1) * kDqKeys, s);
+      load_tile_async<D, kDqKeys, kBwdThreads>(next + kKBytes, v + kv_base,
+                                               (kt + 1) * kDqKeys, s);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile (and, at kt 0, q and dO) has landed
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint32_t at = tile_offset<D>(r0 + frag_row(lane),
+                                           2 * kk + frag_chunk(lane), kDqRows);
+        ldsm_x4(qa[kk], s_q + at);
+        ldsm_x4(da[kk], s_do + at);
+      }
+    }
+    const uint32_t s_k = s_kv + st * 2 * kKBytes, s_v = s_k + kKBytes;
+    float sc[8][4] = {}, dp[8][4] = {};
+#pragma unroll
+    for (int j = 0; j < kDqKeys / 16; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint32_t at =
+            tile_offset<D>(16 * j + b_pair_row(lane),
+                           2 * kk + b_pair_chunk(lane), kDqKeys);
+        uint32_t b[4];
+        ldsm_x4(b, s_k + at);
+        mma_bf16(sc[2 * j], qa[kk], b[0], b[1]);
+        mma_bf16(sc[2 * j + 1], qa[kk], b[2], b[3]);
+        ldsm_x4(b, s_v + at);
+        mma_bf16(dp[2 * j], da[kk], b[0], b[1]);
+        mma_bf16(dp[2 * j + 1], da[kk], b[2], b[3]);
+      }
+    }
+    const int k0 = kt * kDqKeys;
+    const bool edge = (causal && k0 + kDqKeys > q0 + 1) || k0 + kDqKeys > s;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * i + 2 * t + (e & 1);
+        const int row = row_a + 8 * (e >> 1);
+        float p = exp2f(sc[i][e] * scale_log2 - row_lse[e >> 1]);
+        if (edge && (kpos >= s || (causal && kpos > row))) p = 0.0f;
+        sc[i][e] = p * (dp[i][e] - row_dsum[e >> 1]);   // dS
+      }
+    }
+    uint32_t dsa[4][4];
+    acc_to_a<8>(dsa, sc);
+#pragma unroll
+    for (int kk = 0; kk < kDqKeys / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t b[4];
+        ldsm_x4_t(b, s_k + tile_offset<D>(16 * kk + frag_row(lane),
+                                          2 * j + frag_chunk(lane), kDqKeys));
+        mma_bf16(acc[2 * j], dsa[kk], b[0], b[1]);
+        mma_bf16(acc[2 * j + 1], dsa[kk], b[2], b[3]);
+      }
+    }
+    __syncthreads();   // stage st is refilled at the next iteration's top
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= s) continue;
+    bf16* o = dq + q_base + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      *reinterpret_cast<uint32_t*>(o + 8 * j + 2 * t) =
+          pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dsum, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int s, int h, int group,
+                     int causal, float scale) {
+  using namespace flash_mma;
+  constexpr int KS = D / 16;
+  constexpr int NT = D / 8;
+  constexpr uint32_t kKBytes = tile_bytes<D>(kDkvKeys);
+  constexpr uint32_t kQBytes = tile_bytes<D>(kDkvRows);
+  constexpr uint32_t kRowBytes = kDkvRows * sizeof(float);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s_k = aligned_smem(smem_raw);
+  const uint32_t s_v = s_k + kKBytes;
+  const uint32_t s_qd = s_v + kKBytes;           // stage st: q, then dO
+  const uint32_t s_rows = s_qd + 4 * kQBytes;    // stage st: lse, then dsum
+  // the staged lse and dsum, read with plain loads
+  const float* rows_f = reinterpret_cast<const float*>(
+      smem_raw + (s_rows - smem_addr(smem_raw)));
+
+  const int kt = blockIdx.y;   // causal: the first keys see the most rows
+  const int bh = blockIdx.x, hi = bh % h;
+  const int kvh = (bh / h) * (h / group) + hi / group;
+  const size_t q_base = static_cast<size_t>(bh) * s * D;
+  const size_t kv_base = static_cast<size_t>(kvh) * s * D;
+  const size_t row_base = static_cast<size_t>(bh) * s;
+  const int k0 = kt * kDkvKeys;
+  const int nq = (s + kDkvRows - 1) / kDkvRows;
+  const int q_first = causal ? k0 / kDkvRows : 0;
+
+  // q tile qt, its dO tile and their lse and dsum into stage st
+  auto load_q = [&](int qt, int st) {
+    const uint32_t dst = s_qd + st * 2 * kQBytes;
+    load_tile_async<D, kDkvRows, kBwdThreads>(dst, q + q_base,
+                                              qt * kDkvRows, s);
+    load_tile_async<D, kDkvRows, kBwdThreads>(dst + kQBytes, dout + q_base,
+                                              qt * kDkvRows, s);
+    for (int i = threadIdx.x; i < 2 * kDkvRows; i += kBwdThreads) {
+      const int row = qt * kDkvRows + i % kDkvRows;
+      const float* src = (i < kDkvRows ? lse : dsum) + row_base;
+      cp_async4(s_rows + st * 2 * kRowBytes + i * 4, src + (row < s ? row : 0),
+                row < s);
+    }
+  };
+  load_tile_async<D, kDkvKeys, kBwdThreads>(s_k, k + kv_base, k0, s);
+  load_tile_async<D, kDkvKeys, kBwdThreads>(s_v, v + kv_base, k0, s);
+  load_q(q_first, 0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16, t = lane % 4;
+  const int key_a = k0 + r0 + lane / 4;   // and key_a + 8
+  const float scale_log2 = scale * kLog2e;
+  float acc_k[NT][4] = {}, acc_v[NT][4] = {};
+  for (int qt = q_first; qt < nq; ++qt) {
+    const int st = (qt - q_first) & 1;
+    if (qt + 1 < nq) load_q(qt + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const uint32_t s_q = s_qd + st * 2 * kQBytes, s_do = s_q + kQBytes;
+    const float* s_lse = rows_f + st * 2 * kDkvRows;
+    const float* s_dsum = s_lse + kDkvRows;
+    // rows: this warp's 16 keys; columns: the tile's 64 queries
+    float st_[8][4] = {}, dpt[8][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t a_at = tile_offset<D>(r0 + frag_row(lane),
+                                           2 * kk + frag_chunk(lane),
+                                           kDkvKeys);
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, s_k + a_at);
+      ldsm_x4(va, s_v + a_at);
+#pragma unroll
+      for (int j = 0; j < kDkvRows / 16; ++j) {
+        const uint32_t at =
+            tile_offset<D>(16 * j + b_pair_row(lane),
+                           2 * kk + b_pair_chunk(lane), kDkvRows);
+        uint32_t b[4];
+        ldsm_x4(b, s_q + at);
+        mma_bf16(st_[2 * j], ka, b[0], b[1]);
+        mma_bf16(st_[2 * j + 1], ka, b[2], b[3]);
+        ldsm_x4(b, s_do + at);
+        mma_bf16(dpt[2 * j], va, b[0], b[1]);
+        mma_bf16(dpt[2 * j + 1], va, b[2], b[3]);
+      }
+    }
+    const int q0 = qt * kDkvRows;
+    const bool edge =
+        (causal && q0 < k0 + kDkvKeys - 1) || q0 + kDkvRows > s;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * i + 2 * t + (e & 1);
+        const int qpos = q0 + col;
+        const int kpos = key_a + 8 * (e >> 1);
+        float p = exp2f(st_[i][e] * scale_log2 - s_lse[col] * kLog2e);
+        if (edge && (qpos >= s || (causal && kpos > qpos))) p = 0.0f;
+        dpt[i][e] = p * (dpt[i][e] - s_dsum[col]);   // dS^T
+        st_[i][e] = p;                               // P^T
+      }
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    acc_to_a<8>(pa, st_);
+    acc_to_a<8>(dsa, dpt);
+#pragma unroll
+    for (int kk = 0; kk < kDkvRows / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        const uint32_t at = tile_offset<D>(16 * kk + frag_row(lane),
+                                           2 * j + frag_chunk(lane), kDkvRows);
+        uint32_t b[4];
+        ldsm_x4_t(b, s_do + at);
+        mma_bf16(acc_v[2 * j], pa[kk], b[0], b[1]);
+        mma_bf16(acc_v[2 * j + 1], pa[kk], b[2], b[3]);
+        ldsm_x4_t(b, s_q + at);
+        mma_bf16(acc_k[2 * j], dsa[kk], b[0], b[1]);
+        mma_bf16(acc_k[2 * j + 1], dsa[kk], b[2], b[3]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = key_a + 8 * r;
+    if (row >= s) continue;
+    bf16* ok = dk + q_base + static_cast<size_t>(row) * D;
+    bf16* ov = dv + q_base + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      *reinterpret_cast<uint32_t*>(ok + 8 * j + 2 * t) =
+          pack_bf16(acc_k[j][2 * r] * scale, acc_k[j][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(ov + 8 * j + 2 * t) =
+          pack_bf16(acc_v[j][2 * r], acc_v[j][2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+template <int D>
 constexpr size_t tiles_bytes(int n_tiles) {
   return static_cast<size_t>(n_tiles) * kTile * (D + 1) * sizeof(float);
 }
 
-// Opt the kernel into `bytes` of dynamic shared memory, launch it on the
-// (q- or k-tile, q-head, batch) grid, and return cudaGetLastError().
+// Opt the f32 kernel into `bytes` of dynamic shared memory, launch it on
+// the (q- or k-tile, q-head, batch) grid, and return cudaGetLastError().
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, size_t bytes, int s, int h, int b,
            cudaStream_t stream, Args... args) {
@@ -393,6 +944,66 @@ int launch(Kernel kernel, size_t bytes, int s, int h, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The same for a bf16 kernel: `threads` threads on the (batch x q-head,
+// tile) grid, so that every head's first tile is scheduled before any
+// head's second.
+template <typename Kernel, typename... Args>
+int launch_tc(Kernel kernel, size_t bytes, int threads, int rows, int s,
+              int h, int b, cudaStream_t stream, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(b * h, (s + rows - 1) / rows);
+  kernel<<<grid, threads, bytes, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled from the driver library the process has loaded
+// (the runtime links no driver symbols).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A tensor map of the bf16 (n_bh, s, D) array at ptr whose box is `rows`
+// rows of min(D, 64) columns, swizzled as flash_mma.cuh lays tiles out;
+// rows past s read as zeros. False if the driver refuses it.
+template <int D>
+bool tile_map(CUtensorMap* map, const void* ptr, int s, int n_bh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(n_bh)};
+  const cuuint64_t strides[2] = {D * 2, static_cast<cuuint64_t>(s) * D * 2};
+  const cuuint32_t box[3] = {D < 64 ? D : 64, static_cast<cuuint32_t>(rows),
+                             1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  constexpr int kW = flash_mma::swizzle_bytes<D>();
+  const CUtensorMapSwizzle swizzle =
+      kW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : (kW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 struct Problem {
   const void* q;
   const void* k;
@@ -401,58 +1012,99 @@ struct Problem {
   float scale;
 };
 
-template <int D, typename T>
-int fwd(const Problem& p, void* out, float* lse, cudaStream_t stream) {
-  return launch(flash_fwd_kernel<D, T>,
-                tiles_bytes<D>(3) + kTile * kPadP * sizeof(float), p.s, p.h,
-                p.b, stream, static_cast<const T*>(p.q),
-                static_cast<const T*>(p.k), static_cast<const T*>(p.v),
-                static_cast<T*>(out), lse, p.s, p.h, p.h / p.kh, p.causal,
-                p.scale);
+template <int D>
+int fwd(const Problem& p, bool bf16_in, void* out, float* lse,
+        cudaStream_t stream) {
+  if (!bf16_in) {
+    return launch(flash_fwd_kernel<D>,
+                  tiles_bytes<D>(3) + kTile * kPadP * sizeof(float), p.s,
+                  p.h, p.b, stream, static_cast<const float*>(p.q),
+                  static_cast<const float*>(p.k),
+                  static_cast<const float*>(p.v), static_cast<float*>(out),
+                  lse, p.s, p.h, p.h / p.kh, p.causal, p.scale);
+  }
+  CUtensorMap mq, mk, mv;
+  if (!tile_map<D>(&mq, p.q, p.s, p.b * p.h, kFwdRows) ||
+      !tile_map<D>(&mk, p.k, p.s, p.b * p.kh, kFwdKeys) ||
+      !tile_map<D>(&mv, p.v, p.s, p.b * p.kh, kFwdKeys)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_tc(flash_fwd_wgmma_kernel<D>, fwd_smem_bytes<D>(),
+                   kFwdThreads, kFwdRows, p.s, p.h, p.b, stream, mq, mk, mv,
+                   static_cast<bf16*>(out), lse, p.s, p.h, p.h / p.kh,
+                   p.causal, p.scale);
 }
 
-template <int D, typename T>
-int dq(const Problem& p, const void* dout, const float* lse,
+template <int D>
+int dq(const Problem& p, bool bf16_in, const void* dout, const float* lse,
        const float* dsum, void* dq_out, cudaStream_t stream) {
-  return launch(flash_dq_kernel<D, T>,
-                tiles_bytes<D>(4) + kTile * kPadP * sizeof(float), p.s, p.h,
-                p.b, stream, static_cast<const T*>(p.q),
-                static_cast<const T*>(p.k), static_cast<const T*>(p.v),
-                static_cast<const T*>(dout), lse, dsum,
-                static_cast<T*>(dq_out), p.s, p.h, p.h / p.kh, p.causal,
-                p.scale);
+  if (!bf16_in) {
+    return launch(flash_dq_kernel<D>,
+                  tiles_bytes<D>(4) + kTile * kPadP * sizeof(float), p.s,
+                  p.h, p.b, stream, static_cast<const float*>(p.q),
+                  static_cast<const float*>(p.k),
+                  static_cast<const float*>(p.v),
+                  static_cast<const float*>(dout), lse, dsum,
+                  static_cast<float*>(dq_out), p.s, p.h, p.h / p.kh,
+                  p.causal, p.scale);
+  }
+  return launch_tc(flash_dq_mma_kernel<D>, dq_smem_bytes<D>(), kBwdThreads,
+                   kDqRows, p.s, p.h, p.b, stream,
+                   static_cast<const bf16*>(p.q),
+                   static_cast<const bf16*>(p.k),
+                   static_cast<const bf16*>(p.v),
+                   static_cast<const bf16*>(dout), lse, dsum,
+                   static_cast<bf16*>(dq_out), p.s, p.h, p.h / p.kh,
+                   p.causal, p.scale);
 }
 
-template <int D, typename T>
-int dkv(const Problem& p, const void* dout, const float* lse,
+template <int D>
+int dkv(const Problem& p, bool bf16_in, const void* dout, const float* lse,
         const float* dsum, void* dk, void* dv, cudaStream_t stream) {
-  return launch(flash_dkv_kernel<D, T>,
-                tiles_bytes<D>(4) + 2 * kTile * kPadP * sizeof(float)
-                    + 2 * kTile * sizeof(float),
-                p.s, p.h, p.b, stream, static_cast<const T*>(p.q),
-                static_cast<const T*>(p.k), static_cast<const T*>(p.v),
-                static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dk),
-                static_cast<T*>(dv), p.s, p.h, p.h / p.kh, p.causal,
-                p.scale);
+  if (!bf16_in) {
+    return launch(flash_dkv_kernel<D>,
+                  tiles_bytes<D>(4) + 2 * kTile * kPadP * sizeof(float) +
+                      2 * kTile * sizeof(float),
+                  p.s, p.h, p.b, stream, static_cast<const float*>(p.q),
+                  static_cast<const float*>(p.k),
+                  static_cast<const float*>(p.v),
+                  static_cast<const float*>(dout), lse, dsum,
+                  static_cast<float*>(dk), static_cast<float*>(dv), p.s, p.h,
+                  p.h / p.kh, p.causal, p.scale);
+  }
+  return launch_tc(flash_dkv_mma_kernel<D>, dkv_smem_bytes<D>(), kBwdThreads,
+                   kDkvKeys, p.s, p.h, p.b, stream,
+                   static_cast<const bf16*>(p.q),
+                   static_cast<const bf16*>(p.k),
+                   static_cast<const bf16*>(p.v),
+                   static_cast<const bf16*>(dout), lse, dsum,
+                   static_cast<bf16*>(dk), static_cast<bf16*>(dv), p.s, p.h,
+                   p.h / p.kh, p.causal, p.scale);
 }
 
-// Run Op<D, T>(args...) for the head dim and input type of the call.
-#define FLASH_DISPATCH(OP, D_, BF16, ...)                                  \
-  switch (D_) {                                                            \
-    case 16:                                                               \
-      return BF16 ? OP<16, __nv_bfloat16>(__VA_ARGS__)                     \
-                  : OP<16, float>(__VA_ARGS__);                            \
-    case 32:                                                               \
-      return BF16 ? OP<32, __nv_bfloat16>(__VA_ARGS__)                     \
-                  : OP<32, float>(__VA_ARGS__);                            \
-    case 64:                                                               \
-      return BF16 ? OP<64, __nv_bfloat16>(__VA_ARGS__)                     \
-                  : OP<64, float>(__VA_ARGS__);                            \
-    case 128:                                                              \
-      return BF16 ? OP<128, __nv_bfloat16>(__VA_ARGS__)                    \
-                  : OP<128, float>(__VA_ARGS__);                           \
-    default:                                                               \
-      return static_cast<int>(cudaErrorInvalidValue);                      \
+// Dynamic shared memory of the bf16 kernel `which` (0 forward, 1 dQ,
+// 2 dK/dV) at head dim D.
+template <int D>
+int bf16_smem(int which) {
+  const size_t bytes = which == 0   ? fwd_smem_bytes<D>()
+                       : which == 1 ? dq_smem_bytes<D>()
+                                    : dkv_smem_bytes<D>();
+  return static_cast<int>(bytes);
+}
+
+// Run OP<D>(args...) for the head dim of the call.
+#define FLASH_DISPATCH(OP, D_, ...)                    \
+  switch (D_) {                                        \
+    case 16:                                           \
+      return OP<16>(__VA_ARGS__);                      \
+    case 32:                                           \
+      return OP<32>(__VA_ARGS__);                      \
+    case 64:                                           \
+      return OP<64>(__VA_ARGS__);                      \
+    case 128:                                          \
+      return OP<128>(__VA_ARGS__);                     \
+    default:                                           \
+      return static_cast<int>(cudaErrorInvalidValue);  \
   }
 
 bool bad_shape(int b, int h, int kh, int s) {
@@ -469,7 +1121,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 float scale, cudaStream_t stream) {
   if (bad_shape(b, h, kh, s)) return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{q, k, v, b, h, kh, s, causal, scale};
-  FLASH_DISPATCH(fwd, d, bf16, p, out, lse, stream)
+  FLASH_DISPATCH(fwd, d, p, bf16 != 0, out, lse, stream)
 }
 
 // dq from q, k, v, dout, the forward's lse and dsum = rowsum(dout * out).
@@ -480,7 +1132,7 @@ extern "C" int flash_dq_launch(const void* q, const void* k, const void* v,
                                float scale, cudaStream_t stream) {
   if (bad_shape(b, h, kh, s)) return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{q, k, v, b, h, kh, s, causal, scale};
-  FLASH_DISPATCH(dq, d, bf16, p, dout, lse, dsum, dq_out, stream)
+  FLASH_DISPATCH(dq, d, p, bf16 != 0, dout, lse, dsum, dq_out, stream)
 }
 
 // Per-q-head dk_h and dv_h (B, H, S, D) from the same inputs.
@@ -492,7 +1144,13 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
                                 cudaStream_t stream) {
   if (bad_shape(b, h, kh, s)) return static_cast<int>(cudaErrorInvalidValue);
   const Problem p{q, k, v, b, h, kh, s, causal, scale};
-  FLASH_DISPATCH(dkv, d, bf16, p, dout, lse, dsum, dk, dv, stream)
+  FLASH_DISPATCH(dkv, d, p, bf16 != 0, dout, lse, dsum, dk, dv, stream)
+}
+
+// Bytes of dynamic shared memory the bf16 kernel `which` (0 forward, 1 dQ,
+// 2 dK/dV) is launched with at head dim d; -1 for a head dim not built.
+extern "C" int flash_bf16_smem_bytes(int which, int d) {
+  FLASH_DISPATCH(bf16_smem, d, which)
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -112,6 +113,58 @@ def build_log(name: str) -> str:
     """ptxas/nvcc output of the last build of ``name`` ('' if none)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def kernel_resources(log: str) -> Dict[str, dict]:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from ptxas's -v report (``build_log``)."""
+    out: Dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library of ``name`` (the toolkit's
+    cuobjdump beside nvcc)."""
+    tool = Path(nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass_counts(text: str, opcodes: Iterable[str]) -> Dict[str, dict]:
+    """{mangled kernel name: {opcode: instructions}} over the functions of
+    a ``cuobjdump -sass`` listing; an opcode counts the instructions whose
+    mnemonic is it or starts with it and a dot (HMMA.16816...)."""
+    opcodes = tuple(opcodes)
+    out: Dict[str, dict] = {}
+    counts = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            counts = out.setdefault(m.group(1), dict.fromkeys(opcodes, 0))
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                      line)
+        if m and counts is not None:
+            mnemonic = m.group(1).split(".")[0]
+            if mnemonic in counts:
+                counts[mnemonic] += 1
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

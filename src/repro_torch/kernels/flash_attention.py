@@ -56,7 +56,8 @@ def check_contract(q, k, v, block_q: int, block_k: int) -> None:
     """The reference's shape contract (``flash_attention.py:81-88``): q
     (B, H, S, D), k and v (B, KH, S, D) with H % KH == 0 and S a multiple
     of min(block, S) for both blocks. Raises ValueError where the reference
-    asserts. The kernels tile at 64 whatever the blocks are."""
+    asserts. The kernels use their own tiles (64 or 128 rows) whatever the
+    blocks are."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"need q (B, H, S, D) and k, v (B, KH, S, D), got "

@@ -262,14 +262,26 @@ def _attention_inputs(dev, b, h, kh, s, d, dtype, seed):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [8, 100, 512])
+@pytest.mark.parametrize("s", [8, 100, 192, 320, 512])
 @pytest.mark.parametrize("d", [16, 64, 128])
 def test_flash_kernels_match_plain(cuda, d, s, dtype, causal):
     """B8, B9's forward, dQ and dK/dV against their plain versions; 6 q
     heads on 2 kv heads (group 3: head h reads kv head h // 3, not h % 2);
-    S 100 is ragged to the kernels' 64-row tiles."""
+    S 8 and 100 are ragged to every tile; 192 and 320 are multiples of the
+    f32 kernels' and the bf16 backward's 64-row tiles but not of the bf16
+    kernels' 128-row tiles."""
+    _check_flash_kernels(cuda, 2, 6, 2, s, d, dtype, causal)
+
+
+def test_flash_kernels_match_plain_at_full_width(cuda):
+    """The same checks at smollm-135m's attention: one sequence of 4096,
+    9 q heads on 3 kv heads, head dim 64, bf16, causal."""
+    _check_flash_kernels(cuda, 1, 9, 3, 4096, 64, torch.bfloat16, True)
+
+
+def _check_flash_kernels(cuda, b, h, kh, s, d, dtype, causal):
     _no_tf32()
-    q, k, v, do = _attention_inputs(cuda, 2, 6, 2, s, d, dtype, d * s)
+    q, k, v, do = _attention_inputs(cuda, b, h, kh, s, d, dtype, d * s)
     tol, grad_tol = FLASH_TOL[dtype], FLASH_GRAD_TOL[dtype]
     out = flash_attention.flash_attention(q, k, v, causal=causal)
     _close(out, ref.flash_attention_ref(q, k, v, causal=causal), tol)

@@ -374,3 +374,48 @@ def test_build_names_its_temporary_file_per_thread(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="build failed"):
         build.build(["gp"])
     assert f"{threading.get_ident()}" in seen[0]
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiif
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKfS2_S2_PfS3_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKfS2_S2_PfS3_iiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 412 bytes cmem[0]
+"""
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_st
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0a10*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0a20*/              @P0  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0a30*/                   HGMMA.64x64x16.F32.BF16 R88, R56, gdesc[UR8], R88 ;
+\t\tFunction : _ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKfS2_S2_PfS3_iiiif
+        /*0000*/                   FFMA R1, R2, R3, R4 ;
+        /*0010*/                   HMMAX R1 ;
+"""
+
+
+def test_kernel_resources_reads_ptxas_report():
+    got = build.kernel_resources(PTXAS_LOG)
+    assert got == {
+        "_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_"
+        "stS1_S1_P13__nv_bfloat16Pfiiiif":
+            {"registers": 168, "spill_stores": 8, "spill_loads": 4},
+        "_ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKfS2_S2_PfS3_iiiif":
+            {"registers": 64, "spill_stores": 0, "spill_loads": 0}}
+
+
+def test_sass_counts_counts_mnemonics_per_function():
+    got = build.sass_counts(SASS, ("HGMMA", "HMMA"))
+    assert got == {
+        "_ZN12_GLOBAL__N_122flash_fwd_wgmma_kernelILi64EEEv14CUtensorMap_st":
+            {"HGMMA": 2, "HMMA": 1},
+        "_ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKfS2_S2_PfS3_iiiif":
+            {"HGMMA": 0, "HMMA": 0}}

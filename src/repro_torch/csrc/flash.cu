@@ -21,28 +21,32 @@
 // above the card's ridge point.
 //
 // bf16, on the tensor cores (flash_mma.cuh has the building blocks: tiles
-// kept in bf16 in shared memory under the hardware's XOR swizzle,
-// asynchronous copies, ldmatrix, mma.sync and wgmma in inline PTX):
-//  * flash_fwd_wgmma_kernel: one block per (128 q rows, q-head, batch),
-//    the longest causal rows first. One producer warp keeps the q tile and
-//    a two-stage ring of 128-key k/v tiles in flight with TMA (tensor maps
-//    made per call; rows past S arrive as zeros), each stage signalled by
-//    an mbarrier; two consumer warpgroups of 64 rows each run S = Q K^T
-//    as wgmma m64n128k16 from shared memory, the online softmax (running
-//    max, denominator, rescale) in f32 registers, and O += P V as wgmma
-//    with P rounded to bf16 in registers as the A operand and V read
-//    through the transposed-B descriptor, then free the stage.
-//  * flash_dq_mma_kernel: one block of 8 warps per (128 q rows, q-head,
-//    batch); each warp holds 16 rows of Q and dO as mma.sync fragments and
-//    loops over 64-key k/v tiles (cp.async, two stages): S = Q K^T and
-//    dP = dO V^T, P = exp(S - lse), dS = P (dP - dsum) in f32, and
-//    dQ += dS K with dS rounded to bf16 as the A operand.
-//  * flash_dkv_mma_kernel: one block of 8 warps per (128 keys, q-head,
-//    batch), the first keys (the most causal rows) first; each warp owns
-//    16 keys and loops over 64-row q/dO tiles (cp.async, two stages, with
-//    their lse and dsum): S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and
-//    dK += dS^T Q with P^T and dS^T rounded to bf16 as A operands; per
-//    q-head dK and dV, group-summed by the caller as in the reference.
+// kept in bf16 in shared memory under the hardware's XOR swizzle, TMA
+// copies completing on mbarriers, and wgmma in inline PTX). Each kernel is
+// one block of two consumer warpgroups and one producer warp. The producer
+// loads the block's own tiles once and keeps a two-stage ring of the other
+// side's tiles in flight with TMA (tensor maps made per call; rows past S
+// arrive as zeros); each stage is signalled full by its mbarrier and freed
+// by the consumers through another. Each consumer warpgroup owns 64 rows
+// of the block, holds its accumulators in f32 registers, and runs every
+// product as wgmma: products with both operands in shared memory read them
+// K-major, products with a left operand computed in registers (P, dS)
+// round it to bf16 as the A operand and read the right one through the
+// transposed-B (MN-major) descriptor.
+//  * flash_fwd_wgmma_kernel: (128 q rows, q-head, batch) blocks, longest
+//    causal rows first; ring of 128-key k/v tiles. S = Q K^T (m64n128),
+//    the online softmax (running max, denominator, rescale) in registers,
+//    O += P V.
+//  * flash_dq_wgmma_kernel: (128 q rows, q-head, batch), longest rows
+//    first; q and dO fixed, ring of 64-key k/v tiles. S = Q K^T and
+//    dP = dO V^T (m64n64), P = exp(S - lse), dS = P (dP - dsum) in f32,
+//    dQ += dS K.
+//  * flash_dkv_wgmma_kernel: (128 keys, q-head, batch), the first keys
+//    (the most causal rows) first; k and v fixed, ring of 64-row q/dO
+//    tiles with their lse and dsum, which the producer warp stages in
+//    shared memory. S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+//    dK += dS^T Q: per q-head dK and dV, group-summed by the caller as in
+//    the reference.
 // The causal loop stops at the diagonal tile and only tiles that cross the
 // diagonal (or the ragged end of S) are masked. Every row starts at tile
 // 0, whose key 0 it sees, so the running max is finite after the first
@@ -71,8 +75,6 @@
 #include <dlfcn.h>
 
 #include <math.h>
-
-#include <type_traits>
 
 #include "flash_mma.cuh"
 
@@ -397,16 +399,16 @@ using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-constexpr int kFwdRows = 128;      // q rows of a forward block
-constexpr int kFwdKeys = 128;      // keys of a k/v tile
-constexpr int kFwdStages = 2;      // k/v tiles in flight
-constexpr int kFwdThreads = 288;   // two consumer warpgroups, a producer warp
-
-constexpr int kBwdThreads = 256;   // 8 warps of 16 rows (dQ) or keys (dK/dV)
-constexpr int kDqRows = 128;       // q rows of a dQ block
-constexpr int kDqKeys = 64;        // keys of a k/v tile in the dQ kernel
-constexpr int kDkvKeys = 128;      // keys of a dK/dV block
-constexpr int kDkvRows = 64;       // q rows of a q/dO tile in the dK/dV kernel
+constexpr int kThreadsTC = 384;     // two consumer warpgroups, a producer
+constexpr int kConsumerRegs = 232;  // registers of a consumer thread
+constexpr int kProducerRegs = 40;   // and of a producer thread
+constexpr int kStages = 2;          // ring stages in flight
+constexpr int kFwdRows = 128;       // forward: q rows of a block
+constexpr int kFwdKeys = 128;       //   keys of a k/v tile
+constexpr int kDqRows = 128;        // dQ: q rows of a block
+constexpr int kDqKeys = 64;         //   keys of a k/v tile
+constexpr int kDkvKeys = 128;       // dK/dV: keys of a block
+constexpr int kDkvRows = 64;        //   q rows of a q/dO tile
 
 // bf16 bytes of a tile of `rows` rows
 template <int D>
@@ -414,26 +416,77 @@ __host__ __device__ constexpr int tile_bytes(int rows) {
   return rows * D * 2;
 }
 
-// Dynamic shared memory of each kernel: 1024 bytes of slack to align the
-// tiles to the swizzle's 1024-byte period, then the tiles (and, forward,
-// the barriers; dK/dV, the staged lse and dsum).
+// n of a wgmma product over the head dim (D 128 takes two of 64)
 template <int D>
-constexpr size_t fwd_smem_bytes() {
-  return 1024 + tile_bytes<D>(kFwdRows) +
-         2 * kFwdStages * tile_bytes<D>(kFwdKeys) + 8 * (1 + 2 * kFwdStages);
-}
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return 1024 + 2 * tile_bytes<D>(kDqRows) + 4 * tile_bytes<D>(kDqKeys);
-}
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return 1024 + 2 * tile_bytes<D>(kDkvKeys) + 4 * tile_bytes<D>(kDkvRows) +
-         4 * kDkvRows * sizeof(float);
+__host__ __device__ constexpr int head_n() {
+  return D < 64 ? D : 64;
 }
 
-__device__ __forceinline__ uint32_t aligned_smem(const void* raw) {
-  return (flash_mma::smem_addr(raw) + 1023u) & ~1023u;
+// Shared memory of a bf16 kernel, from a 1024-byte boundary (the
+// swizzle's period): NFIXED tiles of FIXED_ROWS rows loaded once, a ring
+// of kStages stages of two tiles of RING_ROWS rows, with ROWS the lse and
+// dsum of each stage's rows, and the mbarriers: one for the fixed tiles,
+// a full and an empty one per stage.
+template <int D, int NFIXED, int FIXED_ROWS, int RING_ROWS, bool ROWS>
+struct Layout {
+  static constexpr uint32_t kFixed = tile_bytes<D>(FIXED_ROWS);
+  static constexpr uint32_t kRing = tile_bytes<D>(RING_ROWS);
+  static constexpr uint32_t kRingAt = NFIXED * kFixed;
+  static constexpr uint32_t kRowsAt = kRingAt + 2 * kStages * kRing;
+  static constexpr uint32_t kBarsAt =
+      kRowsAt + (ROWS ? kStages * 2 * RING_ROWS * 4 : 0);
+  // bytes to ask for: the layout, its alignment slack and the barriers
+  static constexpr size_t kBytes = 1024 + kBarsAt + 8 * (1 + 2 * kStages);
+  uint32_t base;
+  __device__ uint32_t fixed(int i) const { return base + i * kFixed; }
+  __device__ uint32_t ring(int st, int i) const {
+    return base + kRingAt + (2 * st + i) * kRing;
+  }
+  __device__ uint32_t rows(int st) const {
+    return base + kRowsAt + st * 2 * RING_ROWS * 4;
+  }
+  __device__ uint32_t fixed_full() const { return base + kBarsAt; }
+  __device__ uint32_t full(int st) const {
+    return base + kBarsAt + 8 * (1 + st);
+  }
+  __device__ uint32_t empty(int st) const {
+    return base + kBarsAt + 8 * (1 + kStages + st);
+  }
+};
+
+template <int D>
+using FwdLayout = Layout<D, 1, kFwdRows, kFwdKeys, false>;
+template <int D>
+using DqLayout = Layout<D, 2, kDqRows, kDqKeys, false>;
+template <int D>
+using DkvLayout = Layout<D, 2, kDkvKeys, kDkvRows, true>;
+
+// The layout at the first 1024-byte boundary of the dynamic shared memory;
+// thread 0 initialises its barriers (the empty ones wait for lane 0 of
+// each of the 8 consumer warps).
+template <class L>
+__device__ __forceinline__ L start_layout(const void* smem_raw) {
+  using namespace flash_mma;
+  const L sm{(smem_addr(smem_raw) + 1023u) & ~1023u};
+  if (threadIdx.x == 0) {
+    mbar_init(sm.fixed_full(), 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(sm.full(st), 1);
+      mbar_init(sm.empty(st), 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return sm;
+}
+
+// Hand the producer warpgroup's registers to the consumers (every warp of
+// a warpgroup runs the same one; the two paths never meet again).
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
 }
 
 // The `rows`-row tile of rows [row0, row0 + rows) of (batch x head) bh,
@@ -449,48 +502,115 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
   }
 }
 
+// Tiles of ROWS rows from maps a and b (same rows, same bh) into dst and
+// the tile after it, both completing `bar`.
+template <int D, int ROWS>
+__device__ __forceinline__ void tma_pair(uint32_t dst, const CUtensorMap* a,
+                                         const CUtensorMap* b, uint32_t bar,
+                                         int row0, int bh) {
+  flash_mma::mbar_expect_tx(bar, 2 * tile_bytes<D>(ROWS));
+  tma_tile<D>(dst, a, bar, row0, bh, ROWS);
+  tma_tile<D>(dst + tile_bytes<D>(ROWS), b, bar, row0, bh, ROWS);
+}
+
 // Byte offset of k-step kk (16 columns of the head dim) within a tile of
-// `rows` rows: a wgmma K-major descriptor starts there.
+// `rows` rows: a K-major wgmma descriptor starts there.
 template <int D>
 __device__ __forceinline__ uint32_t kstep_offset(int kk, int rows) {
   if constexpr (D == 128) return (kk / 4) * rows * 128 + (kk % 4) * 32;
   return kk * 32;
 }
 
-// d (m64nN) += A B, A from registers, N = 16, 32 or 64.
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (N == 16) {
-    flash_mma::wgmma_rs_m64n16k16(d, a, desc_b);
-  } else if constexpr (N == 32) {
-    flash_mma::wgmma_rs_m64n32k16(d, a, desc_b);
-  } else {
-    flash_mma::wgmma_rs_m64n64k16(d, a, desc_b);
+// Issue acc (m64nN) += A B^T over the head dim: A the 64 rows at `a` of a
+// tile of a_rows rows, B the N-row tile at b, both K-major.
+template <int D, int N>
+__device__ __forceinline__ void issue_abt(float (&acc)[N / 2], uint32_t a,
+                                          int a_rows, uint32_t b) {
+  using namespace flash_mma;
+  constexpr uint32_t kSbo = 8 * swizzle_bytes<D>();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t da =
+        wgmma_desc<D>(a + kstep_offset<D>(kk, a_rows), 16, kSbo);
+    const uint64_t db = wgmma_desc<D>(b + kstep_offset<D>(kk, N), 16, kSbo);
+    if constexpr (N == 64) {
+      wgmma_ss_m64n64k16(acc, da, db);
+    } else {
+      wgmma_ss_m64n128k16(acc, da, db);
+    }
+  }
+}
+
+// Issue acc[hf] (m64n head_n) += A B: A the bf16 fragments of KS blocks of
+// 16 along K from registers, B the MN-major tile of `rows` rows at b (K
+// along its rows from row 0; head-dim half hf at column 64 hf).
+template <int D, int KS>
+__device__ __forceinline__ void issue_ab(
+    float (&acc)[D / head_n<D>()][head_n<D>() / 2],
+    const uint32_t (&a)[KS][4], uint32_t b, int rows) {
+  using namespace flash_mma;
+  constexpr int W = swizzle_bytes<D>();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int hf = 0; hf < D / head_n<D>(); ++hf) {
+      const uint64_t db =
+          wgmma_desc<D>(b + hf * rows * 128 + kk * 16 * W, 8 * W, 8 * W);
+      if constexpr (head_n<D>() == 16) {
+        wgmma_rs_m64n16k16(acc[hf], a[kk], db);
+      } else if constexpr (head_n<D>() == 32) {
+        wgmma_rs_m64n32k16(acc[hf], a[kk], db);
+      } else {
+        wgmma_rs_m64n64k16(acc[hf], a[kk], db);
+      }
+    }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__device__ __forceinline__ void fence_acc(
+    float (&acc)[D / head_n<D>()][head_n<D>() / 2]) {
+#pragma unroll
+  for (int hf = 0; hf < D / head_n<D>(); ++hf) flash_mma::fence_regs(acc[hf]);
+}
+
+// Rows row0 and row0 + 8 of acc (this thread's columns 8 j + 2 t, + 1 of
+// each head-dim half) times `mul` (row r: mul[r]) as bf16 into the (s, D)
+// matrix at dst; rows at or past s are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(
+    bf16* dst, const float (&acc)[D / head_n<D>()][head_n<D>() / 2],
+    int row0, int t, int s, const float (&mul)[2]) {
+  constexpr int DN = head_n<D>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= s) continue;
+    bf16* out = dst + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int hf = 0; hf < D / DN; ++hf) {
+#pragma unroll
+      for (int j = 0; j < DN / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(out + hf * 64 + 8 * j + 2 * t) =
+            flash_mma::pack_bf16(acc[hf][4 * j + 2 * r] * mul[r],
+                                 acc[hf][4 * j + 2 * r + 1] * mul[r]);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        bf16* __restrict__ out, float* __restrict__ lse,
                        int s, int h, int group, int causal, float scale) {
   using namespace flash_mma;
-  constexpr int W = swizzle_bytes<D>();   // bytes of a swizzled row
-  constexpr int DN = D < 64 ? D : 64;     // n of a P V product
-  constexpr int NH = D / DN;              // P V products per k-step
-  constexpr uint32_t kQBytes = tile_bytes<D>(kFwdRows);
-  constexpr uint32_t kKVBytes = tile_bytes<D>(kFwdKeys);
+  constexpr int W = swizzle_bytes<D>();
+  constexpr int DN = head_n<D>();
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t s_q = aligned_smem(smem_raw);
-  const uint32_t s_kv = s_q + kQBytes;   // stage st: k, then v
-  const uint32_t q_full = s_kv + 2 * kFwdStages * kKVBytes;
-  auto full = [&](int st) { return q_full + 8 + 8 * st; };
-  auto empty = [&](int st) { return q_full + 8 + 8 * (kFwdStages + st); };
-
+  const auto sm = start_layout<FwdLayout<D>>(smem_raw);
   const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
   const int bh = blockIdx.x, hi = bh % h;
   const int kvh = (bh / h) * (h / group) + hi / group;
@@ -498,67 +618,40 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int nk = causal ? qt + 1 : (s + kFwdKeys - 1) / kFwdKeys;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int st = 0; st < kFwdStages; ++st) {
-      mbar_init(full(st), 1);
-      mbar_init(empty(st), 8);   // lane 0 of each consumer warp
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp == 8) {   // the producer
-    if (lane == 0) {
-      mbar_expect_tx(q_full, kQBytes);
-      tma_tile<D>(s_q, &tm_q, q_full, q0, bh, kFwdRows);
+  if (warp >= 8) {   // the producer warpgroup: one thread issues
+    producer_regs();
+    if (warp == 8 && lane == 0) {
+      mbar_expect_tx(sm.fixed_full(), tile_bytes<D>(kFwdRows));
+      tma_tile<D>(sm.fixed(0), &tm_q, sm.fixed_full(), q0, bh, kFwdRows);
       for (int kt = 0; kt < nk; ++kt) {
-        const int st = kt % kFwdStages;
-        mbar_wait(empty(st), ((kt / kFwdStages) & 1) ^ 1);
-        mbar_expect_tx(full(st), 2 * kKVBytes);
-        const uint32_t k_tile = s_kv + st * 2 * kKVBytes;
-        tma_tile<D>(k_tile, &tm_k, full(st), kt * kFwdKeys, kvh, kFwdKeys);
-        tma_tile<D>(k_tile + kKVBytes, &tm_v, full(st), kt * kFwdKeys, kvh,
-                    kFwdKeys);
+        const int st = kt % kStages;
+        mbar_wait(sm.empty(st), ((kt / kStages) & 1) ^ 1);
+        tma_pair<D, kFwdKeys>(sm.ring(st, 0), &tm_k, &tm_v, sm.full(st),
+                              kt * kFwdKeys, kvh);
       }
     }
     return;
   }
 
+  consumer_regs();
   // the consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the block;
   // this thread rows wr and wr + 8 of them, key columns 8 j + 2 t, + 1
   const int wg = warp / 4;
   const int wr = (warp % 4) * 16 + lane / 4, t = lane % 4;
   const int row0 = q0 + wg * 64 + wr;
   const float scale_log2 = scale * kLog2e;
-  float o[NH][DN / 2];
-#pragma unroll
-  for (int hf = 0; hf < NH; ++hf) {
-#pragma unroll
-    for (int i = 0; i < DN / 2; ++i) o[hf][i] = 0.0f;
-  }
+  float o[D / DN][DN / 2] = {};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  mbar_wait(q_full, 0);
+  mbar_wait(sm.fixed_full(), 0);
   for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt % kFwdStages;
-    const uint32_t k_tile = s_kv + st * 2 * kKVBytes;
-    const uint32_t v_tile = k_tile + kKVBytes;
-    mbar_wait(full(st), (kt / kFwdStages) & 1);
+    const int st = kt % kStages;
+    mbar_wait(sm.full(st), (kt / kStages) & 1);
 
-    float sc[kFwdKeys / 2];
-#pragma unroll
-    for (int i = 0; i < kFwdKeys / 2; ++i) sc[i] = 0.0f;
+    float sc[kFwdKeys / 2] = {};
     fence_regs(sc);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss_m64n128k16(
-          sc,
-          wgmma_desc<D>(s_q + kstep_offset<D>(kk, kFwdRows) + wg * 64 * W, 16,
-                        8 * W),
-          wgmma_desc<D>(k_tile + kstep_offset<D>(kk, kFwdKeys), 16, 8 * W),
-          1);
-    }
+    issue_abt<D, kFwdKeys>(sc, sm.fixed(0) + wg * 64 * W, kFwdRows,
+                           sm.ring(st, 0));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -600,7 +693,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       l[r] = alpha * l[r] + sum;   // this thread's columns; summed at the end
       m[r] = m_new;
 #pragma unroll
-      for (int hf = 0; hf < NH; ++hf) {
+      for (int hf = 0; hf < D / DN; ++hf) {
 #pragma unroll
         for (int j = 0; j < DN / 8; ++j) {
           o[hf][4 * j + 2 * r] *= alpha;
@@ -610,316 +703,250 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     uint32_t pa[kFwdKeys / 16][4];
     wgmma_acc_to_a(pa, sc);
-#pragma unroll
-    for (int hf = 0; hf < NH; ++hf) fence_regs(o[hf]);
+    fence_acc<D>(o);
     fence_regs(pa);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
-#pragma unroll
-      for (int hf = 0; hf < NH; ++hf) {
-        wgmma_rs<DN>(o[hf], pa[kk],
-                     wgmma_desc<D>(v_tile + hf * kFwdKeys * 128 + kk * 16 * W,
-                                   8 * W, 8 * W));
-      }
-    }
+    issue_ab<D, kFwdKeys / 16>(o, pa, sm.ring(st, 1), kFwdKeys);
     wgmma_commit();
     wgmma_wait_all();
-#pragma unroll
-    for (int hf = 0; hf < NH; ++hf) fence_regs(o[hf]);
+    fence_acc<D>(o);
     fence_regs(pa);
-    if (lane == 0) mbar_arrive(empty(st));
+    if (lane == 0) mbar_arrive(sm.empty(st));
   }
 
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = row0 + 8 * r;
-    if (row >= s) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    bf16* orow = out + (static_cast<size_t>(bh) * s + row) * D;
-#pragma unroll
-    for (int hf = 0; hf < NH; ++hf) {
-#pragma unroll
-      for (int j = 0; j < DN / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(orow + hf * 64 + 8 * j + 2 * t) =
-            pack_bf16(o[hf][4 * j + 2 * r] / denom,
-                      o[hf][4 * j + 2 * r + 1] / denom);
-      }
-    }
-    if (lse != nullptr && t == 0) {
+    inv[r] = 1.0f / denom;
+    const int row = row0 + 8 * r;
+    if (lse != nullptr && t == 0 && row < s) {
       lse[static_cast<size_t>(bh) * s + row] = (m[r] + log2f(denom)) * kLn2;
     }
   }
+  store_rows<D>(out + static_cast<size_t>(bh) * s * D, o, row0, t, s, inv);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dsum, bf16* __restrict__ dq,
-                    int s, int h, int group, int causal, float scale) {
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dsum, bf16* __restrict__ dq,
+                      int s, int h, int group, int causal, float scale) {
   using namespace flash_mma;
-  constexpr int KS = D / 16;   // k-steps along the head dim
-  constexpr int NT = D / 8;    // n-tiles along the head dim
-  constexpr uint32_t kQBytes = tile_bytes<D>(kDqRows);
-  constexpr uint32_t kKBytes = tile_bytes<D>(kDqKeys);
+  constexpr int W = swizzle_bytes<D>();
+  constexpr int DN = head_n<D>();
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t s_q = aligned_smem(smem_raw);
-  const uint32_t s_do = s_q + kQBytes;
-  const uint32_t s_kv = s_do + kQBytes;   // stage st: k, then v
-
+  const auto sm = start_layout<DqLayout<D>>(smem_raw);
   const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal rows first
   const int bh = blockIdx.x, hi = bh % h;
   const int kvh = (bh / h) * (h / group) + hi / group;
-  const size_t q_base = static_cast<size_t>(bh) * s * D;
-  const size_t kv_base = static_cast<size_t>(kvh) * s * D;
   const int q0 = qt * kDqRows;
   const int n_tiles = (s + kDqKeys - 1) / kDqKeys;
   const int nk =
       causal ? min(n_tiles, (q0 + kDqRows + kDqKeys - 1) / kDqKeys) : n_tiles;
-  load_tile_async<D, kDqRows, kBwdThreads>(s_q, q + q_base, q0, s);
-  load_tile_async<D, kDqRows, kBwdThreads>(s_do, dout + q_base, q0, s);
-  load_tile_async<D, kDqKeys, kBwdThreads>(s_kv, k + kv_base, 0, s);
-  load_tile_async<D, kDqKeys, kBwdThreads>(s_kv + kKBytes, v + kv_base, 0, s);
-  cp_async_commit();
-
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16, t = lane % 4;
-  const int row_a = q0 + r0 + lane / 4;   // and row_a + 8
+
+  if (warp >= 8) {   // the producer: q and dO once, then k/v tiles
+    producer_regs();
+    if (warp == 8 && lane == 0) {
+      tma_pair<D, kDqRows>(sm.fixed(0), &tm_q, &tm_do, sm.fixed_full(), q0,
+                           bh);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % kStages;
+        mbar_wait(sm.empty(st), ((kt / kStages) & 1) ^ 1);
+        tma_pair<D, kDqKeys>(sm.ring(st, 0), &tm_k, &tm_v, sm.full(st),
+                             kt * kDqKeys, kvh);
+      }
+    }
+    return;
+  }
+
+  consumer_regs();
+  // the consumers: rows as in the forward, key columns 8 j + 2 t, + 1
+  const int wg = warp / 4;
+  const int wr = (warp % 4) * 16 + lane / 4, t = lane % 4;
+  const int row0 = q0 + wg * 64 + wr;
   const float scale_log2 = scale * kLog2e;
   float row_lse[2], row_dsum[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
+    const int row = row0 + 8 * r;
     const size_t at = static_cast<size_t>(bh) * s + row;
     row_lse[r] = row < s ? lse[at] * kLog2e : 0.0f;
     row_dsum[r] = row < s ? dsum[at] : 0.0f;
   }
-  float acc[NT][4] = {};
-  uint32_t qa[KS][4], da[KS][4];
+  float acc[D / DN][DN / 2] = {};
+  mbar_wait(sm.fixed_full(), 0);
   for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      const uint32_t next = s_kv + (st ^ 1) * 2 * kKBytes;
-      load_tile_async<D, kDqKeys, kBwdThreads>(next, k + kv_base,
-                                               (kt + 1) * kDqKeys, s);
-      load_tile_async<D, kDqKeys, kBwdThreads>(next + kKBytes, v + kv_base,
-                                               (kt + 1) * kDqKeys, s);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();   // this tile (and, at kt 0, q and dO) has landed
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const uint32_t at = tile_offset<D>(r0 + frag_row(lane),
-                                           2 * kk + frag_chunk(lane), kDqRows);
-        ldsm_x4(qa[kk], s_q + at);
-        ldsm_x4(da[kk], s_do + at);
-      }
-    }
-    const uint32_t s_k = s_kv + st * 2 * kKBytes, s_v = s_k + kKBytes;
-    float sc[8][4] = {}, dp[8][4] = {};
-#pragma unroll
-    for (int j = 0; j < kDqKeys / 16; ++j) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const uint32_t at =
-            tile_offset<D>(16 * j + b_pair_row(lane),
-                           2 * kk + b_pair_chunk(lane), kDqKeys);
-        uint32_t b[4];
-        ldsm_x4(b, s_k + at);
-        mma_bf16(sc[2 * j], qa[kk], b[0], b[1]);
-        mma_bf16(sc[2 * j + 1], qa[kk], b[2], b[3]);
-        ldsm_x4(b, s_v + at);
-        mma_bf16(dp[2 * j], da[kk], b[0], b[1]);
-        mma_bf16(dp[2 * j + 1], da[kk], b[2], b[3]);
-      }
-    }
+    const int st = kt % kStages;
+    mbar_wait(sm.full(st), (kt / kStages) & 1);
+    float sc[kDqKeys / 2] = {}, dp[kDqKeys / 2] = {};
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+    issue_abt<D, kDqKeys>(sc, sm.fixed(0) + wg * 64 * W, kDqRows,
+                          sm.ring(st, 0));   // Q K^T
+    issue_abt<D, kDqKeys>(dp, sm.fixed(1) + wg * 64 * W, kDqRows,
+                          sm.ring(st, 1));   // dO V^T
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
     const int k0 = kt * kDqKeys;
     const bool edge = (causal && k0 + kDqKeys > q0 + 1) || k0 + kDqKeys > s;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int j = 0; j < kDqKeys / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + 8 * i + 2 * t + (e & 1);
-        const int row = row_a + 8 * (e >> 1);
-        float p = exp2f(sc[i][e] * scale_log2 - row_lse[e >> 1]);
+        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        float p = exp2f(sc[4 * j + e] * scale_log2 - row_lse[e >> 1]);
         if (edge && (kpos >= s || (causal && kpos > row))) p = 0.0f;
-        sc[i][e] = p * (dp[i][e] - row_dsum[e >> 1]);   // dS
+        sc[4 * j + e] = p * (dp[4 * j + e] - row_dsum[e >> 1]);   // dS
       }
     }
-    uint32_t dsa[4][4];
-    acc_to_a<8>(dsa, sc);
-#pragma unroll
-    for (int kk = 0; kk < kDqKeys / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t b[4];
-        ldsm_x4_t(b, s_k + tile_offset<D>(16 * kk + frag_row(lane),
-                                          2 * j + frag_chunk(lane), kDqKeys));
-        mma_bf16(acc[2 * j], dsa[kk], b[0], b[1]);
-        mma_bf16(acc[2 * j + 1], dsa[kk], b[2], b[3]);
-      }
-    }
-    __syncthreads();   // stage st is refilled at the next iteration's top
+    uint32_t dsa[kDqKeys / 16][4];
+    wgmma_acc_to_a(dsa, sc);
+    fence_acc<D>(acc);
+    fence_regs(dsa);
+    wgmma_fence();
+    issue_ab<D, kDqKeys / 16>(acc, dsa, sm.ring(st, 0), kDqKeys);   // dS K
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc<D>(acc);
+    fence_regs(dsa);
+    if (lane == 0) mbar_arrive(sm.empty(st));
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row_a + 8 * r;
-    if (row >= s) continue;
-    bf16* o = dq + q_base + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      *reinterpret_cast<uint32_t*>(o + 8 * j + 2 * t) =
-          pack_bf16(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
-    }
-  }
+  const float mul[2] = {scale, scale};
+  store_rows<D>(dq + static_cast<size_t>(bh) * s * D, acc, row0, t, s, mul);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dsum, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int s, int h, int group,
-                     int causal, float scale) {
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dsum, bf16* __restrict__ dk,
+                       bf16* __restrict__ dv, int s, int h, int group,
+                       int causal, float scale) {
   using namespace flash_mma;
-  constexpr int KS = D / 16;
-  constexpr int NT = D / 8;
-  constexpr uint32_t kKBytes = tile_bytes<D>(kDkvKeys);
-  constexpr uint32_t kQBytes = tile_bytes<D>(kDkvRows);
-  constexpr uint32_t kRowBytes = kDkvRows * sizeof(float);
+  constexpr int W = swizzle_bytes<D>();
+  constexpr int DN = head_n<D>();
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t s_k = aligned_smem(smem_raw);
-  const uint32_t s_v = s_k + kKBytes;
-  const uint32_t s_qd = s_v + kKBytes;           // stage st: q, then dO
-  const uint32_t s_rows = s_qd + 4 * kQBytes;    // stage st: lse, then dsum
-  // the staged lse and dsum, read with plain loads
-  const float* rows_f = reinterpret_cast<const float*>(
-      smem_raw + (s_rows - smem_addr(smem_raw)));
-
+  const auto sm = start_layout<DkvLayout<D>>(smem_raw);
+  // the staged lse and dsum of stage st, read and written with plain
+  // loads and stores
+  auto rows_of = [&](int st) {
+    return reinterpret_cast<float*>(smem_raw +
+                                    (sm.rows(st) - smem_addr(smem_raw)));
+  };
   const int kt = blockIdx.y;   // causal: the first keys see the most rows
   const int bh = blockIdx.x, hi = bh % h;
   const int kvh = (bh / h) * (h / group) + hi / group;
-  const size_t q_base = static_cast<size_t>(bh) * s * D;
-  const size_t kv_base = static_cast<size_t>(kvh) * s * D;
-  const size_t row_base = static_cast<size_t>(bh) * s;
   const int k0 = kt * kDkvKeys;
   const int nq = (s + kDkvRows - 1) / kDkvRows;
   const int q_first = causal ? k0 / kDkvRows : 0;
-
-  // q tile qt, its dO tile and their lse and dsum into stage st
-  auto load_q = [&](int qt, int st) {
-    const uint32_t dst = s_qd + st * 2 * kQBytes;
-    load_tile_async<D, kDkvRows, kBwdThreads>(dst, q + q_base,
-                                              qt * kDkvRows, s);
-    load_tile_async<D, kDkvRows, kBwdThreads>(dst + kQBytes, dout + q_base,
-                                              qt * kDkvRows, s);
-    for (int i = threadIdx.x; i < 2 * kDkvRows; i += kBwdThreads) {
-      const int row = qt * kDkvRows + i % kDkvRows;
-      const float* src = (i < kDkvRows ? lse : dsum) + row_base;
-      cp_async4(s_rows + st * 2 * kRowBytes + i * 4, src + (row < s ? row : 0),
-                row < s);
-    }
-  };
-  load_tile_async<D, kDkvKeys, kBwdThreads>(s_k, k + kv_base, k0, s);
-  load_tile_async<D, kDkvKeys, kBwdThreads>(s_v, v + kv_base, k0, s);
-  load_q(q_first, 0);
-  cp_async_commit();
-
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp * 16, t = lane % 4;
-  const int key_a = k0 + r0 + lane / 4;   // and key_a + 8
-  const float scale_log2 = scale * kLog2e;
-  float acc_k[NT][4] = {}, acc_v[NT][4] = {};
-  for (int qt = q_first; qt < nq; ++qt) {
-    const int st = (qt - q_first) & 1;
-    if (qt + 1 < nq) load_q(qt + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint32_t s_q = s_qd + st * 2 * kQBytes, s_do = s_q + kQBytes;
-    const float* s_lse = rows_f + st * 2 * kDkvRows;
-    const float* s_dsum = s_lse + kDkvRows;
-    // rows: this warp's 16 keys; columns: the tile's 64 queries
-    float st_[8][4] = {}, dpt[8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const uint32_t a_at = tile_offset<D>(r0 + frag_row(lane),
-                                           2 * kk + frag_chunk(lane),
-                                           kDkvKeys);
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, s_k + a_at);
-      ldsm_x4(va, s_v + a_at);
-#pragma unroll
-      for (int j = 0; j < kDkvRows / 16; ++j) {
-        const uint32_t at =
-            tile_offset<D>(16 * j + b_pair_row(lane),
-                           2 * kk + b_pair_chunk(lane), kDkvRows);
-        uint32_t b[4];
-        ldsm_x4(b, s_q + at);
-        mma_bf16(st_[2 * j], ka, b[0], b[1]);
-        mma_bf16(st_[2 * j + 1], ka, b[2], b[3]);
-        ldsm_x4(b, s_do + at);
-        mma_bf16(dpt[2 * j], va, b[0], b[1]);
-        mma_bf16(dpt[2 * j + 1], va, b[2], b[3]);
+
+  if (warp >= 8) {   // the producer: k and v once, then q/dO tiles
+    producer_regs();
+    if (warp > 8) return;
+    if (lane == 0) {
+      tma_pair<D, kDkvKeys>(sm.fixed(0), &tm_k, &tm_v, sm.fixed_full(), k0,
+                            kvh);
+    }
+    for (int qt = q_first; qt < nq; ++qt) {
+      const int i = qt - q_first, st = i % kStages;
+      mbar_wait(sm.empty(st), ((i / kStages) & 1) ^ 1);
+      float* rows = rows_of(st);
+      for (int r = lane; r < kDkvRows; r += 32) {
+        const int row = qt * kDkvRows + r;
+        const size_t at = static_cast<size_t>(bh) * s + row;
+        rows[r] = row < s ? lse[at] * kLog2e : 0.0f;
+        rows[kDkvRows + r] = row < s ? dsum[at] : 0.0f;
+      }
+      __syncwarp();
+      if (lane == 0) {   // its arrive releases the lanes' stores too
+        tma_pair<D, kDkvRows>(sm.ring(st, 0), &tm_q, &tm_do, sm.full(st),
+                              qt * kDkvRows, bh);
       }
     }
+    return;
+  }
+
+  consumer_regs();
+  // the consumers: warpgroup wg owns keys 64 wg .. 64 wg + 63 of the block;
+  // this thread keys wr and wr + 8 of them, q columns 8 j + 2 t, + 1
+  const int wg = warp / 4;
+  const int wr = (warp % 4) * 16 + lane / 4, t = lane % 4;
+  const int key0 = k0 + wg * 64 + wr;
+  const float scale_log2 = scale * kLog2e;
+  float acc_k[D / DN][DN / 2] = {}, acc_v[D / DN][DN / 2] = {};
+  mbar_wait(sm.fixed_full(), 0);
+  for (int qt = q_first; qt < nq; ++qt) {
+    const int i = qt - q_first, st = i % kStages;
+    mbar_wait(sm.full(st), (i / kStages) & 1);
+    float pt[kDkvRows / 2] = {}, dpt[kDkvRows / 2] = {};
+    fence_regs(pt);
+    fence_regs(dpt);
+    wgmma_fence();
+    issue_abt<D, kDkvRows>(pt, sm.fixed(0) + wg * 64 * W, kDkvKeys,
+                           sm.ring(st, 0));   // K Q^T
+    issue_abt<D, kDkvRows>(dpt, sm.fixed(1) + wg * 64 * W, kDkvKeys,
+                           sm.ring(st, 1));   // V dO^T
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pt);
+    fence_regs(dpt);
+
+    const float* s_lse = rows_of(st);
+    const float* s_dsum = s_lse + kDkvRows;
     const int q0 = qt * kDkvRows;
     const bool edge =
         (causal && q0 < k0 + kDkvKeys - 1) || q0 + kDkvRows > s;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int j = 0; j < kDkvRows / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = 8 * i + 2 * t + (e & 1);
-        const int qpos = q0 + col;
-        const int kpos = key_a + 8 * (e >> 1);
-        float p = exp2f(st_[i][e] * scale_log2 - s_lse[col] * kLog2e);
-        if (edge && (qpos >= s || (causal && kpos > qpos))) p = 0.0f;
-        dpt[i][e] = p * (dpt[i][e] - s_dsum[col]);   // dS^T
-        st_[i][e] = p;                               // P^T
+        const int col = 8 * j + 2 * t + (e & 1);
+        const int kpos = key0 + 8 * (e >> 1);
+        float p = exp2f(pt[4 * j + e] * scale_log2 - s_lse[col]);
+        if (edge && (q0 + col >= s || (causal && kpos > q0 + col))) p = 0.0f;
+        dpt[4 * j + e] = p * (dpt[4 * j + e] - s_dsum[col]);   // dS^T
+        pt[4 * j + e] = p;                                     // P^T
       }
     }
-    uint32_t pa[4][4], dsa[4][4];
-    acc_to_a<8>(pa, st_);
-    acc_to_a<8>(dsa, dpt);
-#pragma unroll
-    for (int kk = 0; kk < kDkvRows / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        const uint32_t at = tile_offset<D>(16 * kk + frag_row(lane),
-                                           2 * j + frag_chunk(lane), kDkvRows);
-        uint32_t b[4];
-        ldsm_x4_t(b, s_do + at);
-        mma_bf16(acc_v[2 * j], pa[kk], b[0], b[1]);
-        mma_bf16(acc_v[2 * j + 1], pa[kk], b[2], b[3]);
-        ldsm_x4_t(b, s_q + at);
-        mma_bf16(acc_k[2 * j], dsa[kk], b[0], b[1]);
-        mma_bf16(acc_k[2 * j + 1], dsa[kk], b[2], b[3]);
-      }
-    }
-    __syncthreads();
+    uint32_t pa[kDkvRows / 16][4], dsa[kDkvRows / 16][4];
+    wgmma_acc_to_a(pa, pt);
+    wgmma_acc_to_a(dsa, dpt);
+    fence_acc<D>(acc_k);
+    fence_acc<D>(acc_v);
+    fence_regs(pa);
+    fence_regs(dsa);
+    wgmma_fence();
+    issue_ab<D, kDkvRows / 16>(acc_v, pa, sm.ring(st, 1), kDkvRows);  // P^T dO
+    issue_ab<D, kDkvRows / 16>(acc_k, dsa, sm.ring(st, 0), kDkvRows); // dS^T Q
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_acc<D>(acc_k);
+    fence_acc<D>(acc_v);
+    fence_regs(pa);
+    fence_regs(dsa);
+    if (lane == 0) mbar_arrive(sm.empty(st));
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = key_a + 8 * r;
-    if (row >= s) continue;
-    bf16* ok = dk + q_base + static_cast<size_t>(row) * D;
-    bf16* ov = dv + q_base + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      *reinterpret_cast<uint32_t*>(ok + 8 * j + 2 * t) =
-          pack_bf16(acc_k[j][2 * r] * scale, acc_k[j][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(ov + 8 * j + 2 * t) =
-          pack_bf16(acc_v[j][2 * r], acc_v[j][2 * r + 1]);
-    }
-  }
+  const size_t base = static_cast<size_t>(bh) * s * D;
+  const float k_mul[2] = {scale, scale}, v_mul[2] = {1.0f, 1.0f};
+  store_rows<D>(dk + base, acc_k, key0, t, s, k_mul);
+  store_rows<D>(dv + base, acc_v, key0, t, s, v_mul);
 }
 
 // ---------------------------------------------------------------------------
@@ -944,18 +971,18 @@ int launch(Kernel kernel, size_t bytes, int s, int h, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same for a bf16 kernel: `threads` threads on the (batch x q-head,
-// tile) grid, so that every head's first tile is scheduled before any
-// head's second.
+// The same for a bf16 kernel: kThreadsTC threads on the (batch x q-head,
+// tile of `rows` rows) grid, so that every head's first tile is scheduled
+// before any head's second.
 template <typename Kernel, typename... Args>
-int launch_tc(Kernel kernel, size_t bytes, int threads, int rows, int s,
-              int h, int b, cudaStream_t stream, Args... args) {
+int launch_tc(Kernel kernel, size_t bytes, int rows, int s, int h, int b,
+              cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(b * h, (s + rows - 1) / rows);
-  kernel<<<grid, threads, bytes, stream>>>(args...);
+  kernel<<<grid, kThreadsTC, bytes, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1029,10 +1056,20 @@ int fwd(const Problem& p, bool bf16_in, void* out, float* lse,
       !tile_map<D>(&mv, p.v, p.s, p.b * p.kh, kFwdKeys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_tc(flash_fwd_wgmma_kernel<D>, fwd_smem_bytes<D>(),
-                   kFwdThreads, kFwdRows, p.s, p.h, p.b, stream, mq, mk, mv,
-                   static_cast<bf16*>(out), lse, p.s, p.h, p.h / p.kh,
-                   p.causal, p.scale);
+  return launch_tc(flash_fwd_wgmma_kernel<D>, FwdLayout<D>::kBytes, kFwdRows,
+                   p.s, p.h, p.b, stream, mq, mk, mv, static_cast<bf16*>(out),
+                   lse, p.s, p.h, p.h / p.kh, p.causal, p.scale);
+}
+
+// Tensor maps of q and dO with `q_rows`-row boxes and of k and v with
+// `kv_rows`-row boxes, for a backward kernel; false if one is refused.
+template <int D>
+bool bwd_maps(const Problem& p, const void* dout, int q_rows, int kv_rows,
+              CUtensorMap (&maps)[4]) {
+  return tile_map<D>(&maps[0], p.q, p.s, p.b * p.h, q_rows) &&
+         tile_map<D>(&maps[1], p.k, p.s, p.b * p.kh, kv_rows) &&
+         tile_map<D>(&maps[2], p.v, p.s, p.b * p.kh, kv_rows) &&
+         tile_map<D>(&maps[3], dout, p.s, p.b * p.h, q_rows);
 }
 
 template <int D>
@@ -1048,14 +1085,14 @@ int dq(const Problem& p, bool bf16_in, const void* dout, const float* lse,
                   static_cast<float*>(dq_out), p.s, p.h, p.h / p.kh,
                   p.causal, p.scale);
   }
-  return launch_tc(flash_dq_mma_kernel<D>, dq_smem_bytes<D>(), kBwdThreads,
-                   kDqRows, p.s, p.h, p.b, stream,
-                   static_cast<const bf16*>(p.q),
-                   static_cast<const bf16*>(p.k),
-                   static_cast<const bf16*>(p.v),
-                   static_cast<const bf16*>(dout), lse, dsum,
-                   static_cast<bf16*>(dq_out), p.s, p.h, p.h / p.kh,
-                   p.causal, p.scale);
+  CUtensorMap maps[4];
+  if (!bwd_maps<D>(p, dout, kDqRows, kDqKeys, maps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_tc(flash_dq_wgmma_kernel<D>, DqLayout<D>::kBytes, kDqRows,
+                   p.s, p.h, p.b, stream, maps[0], maps[1], maps[2], maps[3],
+                   lse, dsum, static_cast<bf16*>(dq_out), p.s, p.h,
+                   p.h / p.kh, p.causal, p.scale);
 }
 
 template <int D>
@@ -1072,23 +1109,23 @@ int dkv(const Problem& p, bool bf16_in, const void* dout, const float* lse,
                   static_cast<float*>(dk), static_cast<float*>(dv), p.s, p.h,
                   p.h / p.kh, p.causal, p.scale);
   }
-  return launch_tc(flash_dkv_mma_kernel<D>, dkv_smem_bytes<D>(), kBwdThreads,
-                   kDkvKeys, p.s, p.h, p.b, stream,
-                   static_cast<const bf16*>(p.q),
-                   static_cast<const bf16*>(p.k),
-                   static_cast<const bf16*>(p.v),
-                   static_cast<const bf16*>(dout), lse, dsum,
-                   static_cast<bf16*>(dk), static_cast<bf16*>(dv), p.s, p.h,
-                   p.h / p.kh, p.causal, p.scale);
+  CUtensorMap maps[4];
+  if (!bwd_maps<D>(p, dout, kDkvRows, kDkvKeys, maps)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_tc(flash_dkv_wgmma_kernel<D>, DkvLayout<D>::kBytes, kDkvKeys,
+                   p.s, p.h, p.b, stream, maps[0], maps[1], maps[2], maps[3],
+                   lse, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                   p.s, p.h, p.h / p.kh, p.causal, p.scale);
 }
 
 // Dynamic shared memory of the bf16 kernel `which` (0 forward, 1 dQ,
 // 2 dK/dV) at head dim D.
 template <int D>
 int bf16_smem(int which) {
-  const size_t bytes = which == 0   ? fwd_smem_bytes<D>()
-                       : which == 1 ? dq_smem_bytes<D>()
-                                    : dkv_smem_bytes<D>();
+  const size_t bytes = which == 0   ? FwdLayout<D>::kBytes
+                       : which == 1 ? DqLayout<D>::kBytes
+                                    : DkvLayout<D>::kBytes;
   return static_cast<int>(bytes);
 }
 
@@ -1148,7 +1185,7 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
 }
 
 // Bytes of dynamic shared memory the bf16 kernel `which` (0 forward, 1 dQ,
-// 2 dK/dV) is launched with at head dim d; -1 for a head dim not built.
+// 2 dK/dV) is launched with at head dim d, one of 16, 32, 64, 128.
 extern "C" int flash_bf16_smem_bytes(int which, int d) {
   FLASH_DISPATCH(bf16_smem, d, which)
 }

@@ -1,7 +1,6 @@
 // Building blocks of the bf16 flash-attention kernels in flash.cu, for
-// sm_90a: a swizzled bf16 tile layout in shared memory, asynchronous copies
-// (cp.async and TMA with mbarriers), ldmatrix, mma.sync m16n8k16 and
-// wgmma, all through inline PTX.
+// sm_90a: a swizzled bf16 tile layout in shared memory, TMA copies with
+// mbarriers, and wgmma, all through inline PTX.
 //
 // The tile layout. A tile of `rows` rows of D bf16 values is stored row
 // by row in 16-byte chunks (8 values); chunk c of row r lands at chunk
@@ -9,9 +8,8 @@
 // (D 64), (r / 2) % 4 for 64 bytes (D 32) and (r / 4) % 2 for 32 bytes
 // (D 16). That is the hardware's 128-, 64- and 32-byte swizzle (bits 4-6
 // of the address XORed with bits 7-9) on a tile that starts on a 1024-byte
-// boundary, so TMA writes it and wgmma reads it as it is, and ldmatrix,
-// which reads one chunk of 8 consecutive rows at a time, meets no bank
-// conflict. D 128 is stored as two tiles of 64 columns, one after the
+// boundary, so TMA writes it and wgmma reads it as it is, without bank
+// conflicts. D 128 is stored as two tiles of 64 columns, one after the
 // other (a 256-byte row is wider than the widest swizzle).
 #pragma once
 
@@ -23,24 +21,6 @@
 
 namespace flash_mma {
 
-// Byte offset of 16-byte chunk `chunk` (0 .. D/8 - 1) of row `row` in a
-// tile of `rows` rows.
-template <int D>
-__device__ __forceinline__ uint32_t tile_offset(int row, int chunk,
-                                                int rows) {
-  if constexpr (D == 128) {
-    return (chunk >> 3) * rows * 128 + row * 128 +
-           (((chunk & 7) ^ (row & 7)) << 4);
-  } else if constexpr (D == 64) {
-    return row * 128 + ((chunk ^ (row & 7)) << 4);
-  } else if constexpr (D == 32) {
-    return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
-  } else {
-    static_assert(D == 16, "head dims 16, 32, 64, 128");
-    return row * 32 + ((chunk ^ ((row >> 2) & 1)) << 4);
-  }
-}
-
 // Width in bytes of one swizzled row (the swizzle span) for head dim D.
 template <int D>
 __host__ __device__ constexpr int swizzle_bytes() {
@@ -51,100 +31,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// -- cp.async ---------------------------------------------------------------
-// 16 bytes from src to shared dst; zeros instead when !valid.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-// 4 bytes from src to shared dst; zeros instead when !valid.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Rows [row0, row0 + ROWS) of the (s, D) bf16 matrix at src into the tile
-// at dst (the layout above) with cp.async by NTHREADS threads; rows at or
-// past s are zeros.
-template <int D, int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_tile_async(uint32_t dst,
-                                                const __nv_bfloat16* src,
-                                                int row0, int s) {
-  constexpr int kChunks = D / 8;
-#pragma unroll
-  for (int e = threadIdx.x; e < ROWS * kChunks; e += NTHREADS) {
-    const int r = e / kChunks, c = e % kChunks;
-    const int row = row0 + r;
-    const bool valid = row < s;
-    cp_async16(dst + tile_offset<D>(r, c, ROWS),
-               src + static_cast<size_t>(valid ? row : 0) * D + c * 8,
-               valid);
-  }
-}
-
-// -- ldmatrix and mma.sync ----------------------------------------------------
-// Four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of
-// matrix l / 8 and receives in r[i] its two values of matrix i.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-// The same, each matrix transposed.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// The lane's ldmatrix address (row, chunk) for a 16 x 16 block at (row0,
-// 2 * kstep) of a tile, read as
-//  * an A fragment (rows = M, chunks along K), or as a B fragment pair of
-//    two n-tiles from a tile stored [K][N] (transposed load): matrices
-//    (rows 0-7, chunk 0), (rows 8-15, chunk 0), (rows 0-7, chunk 1),
-//    (rows 8-15, chunk 1);
-//  * `b_pair`: a B fragment pair from a tile stored [N][K] (rows = N):
-//    matrices (rows 0-7, chunk 0), (rows 0-7, chunk 1), (rows 8-15, chunk
-//    0), (rows 8-15, chunk 1), i.e. b0, b1 of n-tile 0 then of n-tile 1.
-__device__ __forceinline__ int frag_row(int lane) {
-  return (lane & 7) + (((lane >> 3) & 1) << 3);
-}
-__device__ __forceinline__ int frag_chunk(int lane) { return lane >> 4; }
-__device__ __forceinline__ int b_pair_row(int lane) {
-  return (lane & 7) + ((lane >> 4) << 3);
-}
-__device__ __forceinline__ int b_pair_chunk(int lane) {
-  return (lane >> 3) & 1;
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16) b (16 x 8, bf16).
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Two f32 values as one register of two bf16 (lo in the low half), round
 // to nearest even.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -152,22 +38,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The bf16 A fragments (16 x 16 blocks along K) of a 16 x (8 N8)
-// accumulator of m16n8 tiles: block kk packs n-tiles 2 kk and 2 kk + 1
-// (the accumulator's layout of a row pair is the A fragment's).
-template <int N8>
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N8 / 2][4],
-                                         const float (&c)[N8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < N8 / 2; ++kk) {
-    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-// The same for a wgmma accumulator of N values a thread (one warp's 16
-// rows: values 4 j .. 4 j + 3 are n-tile j, laid out as an m16n8 tile).
+// The bf16 A fragments (64 x 16 blocks along K) of a wgmma accumulator of
+// N values a thread: each warp's 16 rows of n-tile j (values 4 j .. 4 j +
+// 3) are laid out as the A fragment's half of block j / 2, so block kk
+// packs n-tiles 2 kk and 2 kk + 1.
 template <int N>
 __device__ __forceinline__ void wgmma_acc_to_a(uint32_t (&a)[N / 8][4],
                                                const float (&c)[N]) {
@@ -264,84 +138,118 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
   }
 }
 
-// d (m64n128, f32) {+}= A B: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b, int accumulate) {
+// d (m64n64, f32) += A B: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// d (m64n128, f32) += A B: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// d (m64n16, f32) {+}= A B: A (bf16) from registers, B MN-major in
+// d (m64n16, f32) += A B: A (bf16) from registers, B MN-major in
 // shared memory (transposed).
 __device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
 }
 
-// d (m64n32, f32) {+}= A B: A (bf16) from registers, B MN-major in
+// d (m64n32, f32) += A B: A (bf16) from registers, B MN-major in
 // shared memory (transposed).
 __device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
       "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
 }
 
-// d (m64n64, f32) {+}= A B: A (bf16) from registers, B MN-major in
+// d (m64n64, f32) += A B: A (bf16) from registers, B MN-major in
 // shared memory (transposed).
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
-                                                 const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(1));
 }
 
 }  // namespace flash_mma

@@ -267,9 +267,9 @@ def _attention_inputs(dev, b, h, kh, s, d, dtype, seed):
 def test_flash_kernels_match_plain(cuda, d, s, dtype, causal):
     """B8, B9's forward, dQ and dK/dV against their plain versions; 6 q
     heads on 2 kv heads (group 3: head h reads kv head h // 3, not h % 2);
-    S 8 and 100 are ragged to every tile; 192 and 320 are multiples of the
-    f32 kernels' and the bf16 backward's 64-row tiles but not of the bf16
-    kernels' 128-row tiles."""
+    S 8 and 100 are ragged to every tile; 192 and 320 are multiples of 64
+    (the f32 kernels' tiles, the bf16 dK/dV kernel's q tiles) but not of
+    128 (the bf16 kernels' blocks)."""
     _check_flash_kernels(cuda, 2, 6, 2, s, d, dtype, causal)
 
 

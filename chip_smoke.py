@@ -171,13 +171,14 @@ def flash_build_report(build) -> dict:
     import re
     lib = build.load("flash")
     lib.flash_bf16_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    bf16_kernels = {"flash_fwd_wgmma_kernel": 0, "flash_dq_mma_kernel": 1,
-                    "flash_dkv_mma_kernel": 2}
+    bf16_kernels = {"flash_fwd_wgmma_kernel": 0, "flash_dq_wgmma_kernel": 1,
+                    "flash_dkv_wgmma_kernel": 2}
     resources = build.kernel_resources(build.build_log("flash"))
     rows = {}
     for mangled, counts in build.sass_counts(build.sass("flash"),
                                              ("HGMMA", "HMMA")).items():
-        m = re.search(r"(flash_\w+?_kernel)ILi(\d+)E", mangled)
+        # the name after the anonymous namespace's, and the head dim D
+        m = re.search(r"(flash_[a-z]+(?:_wgmma)?_kernel)ILi(\d+)E", mangled)
         require(m is not None, f"unknown kernel {mangled} in flash.cu")
         kernel, d = m.group(1), int(m.group(2))
         row = {**resources.get(mangled, {}), **counts}
@@ -188,8 +189,11 @@ def flash_build_report(build) -> dict:
                     f"bf16 kernel {kernel}<{d}> runs no tensor-core "
                     f"instruction")
         rows[f"{kernel}<{d}>"] = row
-    require(len(rows) == 24, f"flash.cu: 24 kernels expected, got "
-            f"{sorted(rows)}")
+    want = {f"{k}<{d}>" for k in (*bf16_kernels, "flash_fwd_kernel",
+                                  "flash_dq_kernel", "flash_dkv_kernel")
+            for d in (16, 32, 64, 128)}
+    require(set(rows) == want, f"flash.cu kernels: expected {sorted(want)}, "
+            f"got {sorted(rows)}")
     return rows
 
 

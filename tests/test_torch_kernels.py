@@ -419,3 +419,54 @@ def test_sass_counts_counts_mnemonics_per_function():
             {"HGMMA": 2, "HMMA": 1},
         "_ZN12_GLOBAL__N_116flash_fwd_kernelILi16EEEvPKfS2_S2_PfS3_iiiif":
             {"HGMMA": 0, "HMMA": 0}}
+
+
+def _fake_flash_build(tensor_core_ops):
+    """A stand-in for ``build`` whose flash library has the 24 kernels of
+    ``csrc/flash.cu`` (names as nvcc mangles them in the file's anonymous
+    namespace), the bf16 ones with ``tensor_core_ops`` HGMMA each."""
+    import types
+    funcs = []
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+                   "flash_dkv_wgmma_kernel", "flash_fwd_kernel",
+                   "flash_dq_kernel", "flash_dkv_kernel"):
+        for d in (16, 32, 64, 128):
+            n = (tensor_core_ops if "wgmma" in kernel else 0)
+            funcs.append((f"_ZN18flash_cu_5326155222{kernel}ILi{d}EEEv", n))
+    sass = "\n".join(
+        f"\t\tFunction : {name}\n" + "".join(
+            f"        /*{i:04x}*/    HGMMA.64x64x16.F32.BF16 R1 ;\n"
+            for i in range(n)) + "        /*ff00*/    EXIT ;"
+        for name, n in funcs)
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Used 168 registers" for name, _ in funcs)
+
+    def smem_bytes(which, d):
+        return 1000 * which + d
+
+    lib = types.SimpleNamespace(flash_bf16_smem_bytes=smem_bytes)
+    return types.SimpleNamespace(
+        load=lambda name: lib, build_log=lambda name: log,
+        sass=lambda name: sass, kernel_resources=build.kernel_resources,
+        sass_counts=build.sass_counts)
+
+
+def test_flash_build_report_requires_tensor_cores_in_bf16_kernels():
+    """chip_smoke's build line: every flash kernel by name and head dim,
+    dynamic shared memory for the bf16 ones; a bf16 kernel without a
+    tensor-core instruction fails the phase."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rows = smoke.flash_build_report(_fake_flash_build(2))
+    assert len(rows) == 24
+    assert rows["flash_dq_wgmma_kernel<64>"] == {
+        "registers": 168, "HGMMA": 2, "HMMA": 0, "smem_bytes": 1064}
+    assert rows["flash_dkv_kernel<128>"] == {
+        "registers": 168, "HGMMA": 0, "HMMA": 0}
+    with pytest.raises(RuntimeError, match="no tensor-core instruction"):
+        smoke.flash_build_report(_fake_flash_build(0))

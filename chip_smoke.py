@@ -13,7 +13,9 @@ Phases (any failure exits non-zero):
   1. build    nvcc builds every csrc/*.cu, one process per source at once;
               a second build line lists each flash kernel's registers,
               spills, dynamic shared memory (bf16) and HGMMA/HMMA count
-              from cuobjdump -sass (a bf16 kernel with none fails).
+              from cuobjdump -sass (a bf16 kernel with none fails); a third
+              the same of cholesky.cu's kernels (registers, spills, dynamic
+              shared memory), which must be exactly the expected four.
   2. kernels  each kernel against its plain version at the main paths'
               shapes, dominance also with the +BIG rows that ranking
               writes for empty slots (diffusion and the GP assembly
@@ -28,9 +30,12 @@ Phases (any failure exits non-zero):
               same thing, that call's; "call_ms" is the per-call time of
               back-to-back calls between CUDA events, which the host's
               launch cost sets for small kernels. For the blocked
-              Cholesky, a chain of 3 launches per 64-wide step, "ms" is
-              the wrapper's time between CUDA events (the gaps between
-              its launches included) and "kernel_ms" the profiler's sum.
+              Cholesky (two streams, two launches per 64-wide step), "ms"
+              and "library_ms" (cuSOLVER) are the wrapper's and
+              cholesky_ex's times between CUDA events, taken in turns
+              (median of 20 samples, with min and max), beside the
+              profiler's summed kernel time, the union of its kernel
+              intervals, and the time by kernel (factor_timing).
   3. parity   simulate_batch on the card against the CPU plain path, same
               Gumbel noise, REDUCED config: first-empty ticks equal; and
               gp_fit on the card against the CPU plain path at n = 80.
@@ -197,12 +202,86 @@ def flash_build_report(build) -> dict:
     return rows
 
 
+def kernel_name(raw: str) -> str:
+    """A CUDA kernel's name as the profiler reports it, without namespace,
+    template or argument list."""
+    name = raw.replace("(anonymous namespace)::", "")
+    name = name.split("(")[0].split("<")[0].split("::")[-1]
+    return name.split()[-1]
+
+
+def kernel_intervals(torch, prof) -> list:
+    """[(kernel name, start us, end us)] of every CUDA kernel record of a
+    torch.profiler window, in the order the profiler lists them."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(kernel_name(e.name), e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == cuda]
+
+
+def busy_union_ms(intervals) -> float:
+    """Time the card ran at least one kernel: the length of the union of
+    the kernel intervals, ms. Kernels on two streams overlap, so a sum of
+    their times can exceed the wall time of the window."""
+    total, end = 0.0, None
+    for _, start, stop in sorted(intervals, key=lambda r: r[1]):
+        if end is None or start > end:
+            total += stop - start
+            end = stop
+        elif stop > end:
+            total += stop - end
+            end = stop
+    return total / 1e3
+
+
+def kernel_breakdown(intervals, reps: int = 1) -> dict:
+    """{kernel name: {"ms": summed time per rep, "launches": launches per
+    rep, "median_us", "min_us", "max_us": one launch's time}} of the
+    kernel records of ``reps`` runs of the same work."""
+    by = {}
+    for name, start, stop in intervals:
+        by.setdefault(name, []).append(stop - start)
+    return {name: {"ms": sum(d) / 1e3 / reps, "launches": len(d) / reps,
+                   "median_us": statistics.median(d), "min_us": min(d),
+                   "max_us": max(d)} for name, d in sorted(by.items())}
+
+
+CHOL_KERNELS = ("chol_step_kernel", "chol_trailing_kernel")
+
+
+def chol_build_report(build) -> dict:
+    """Every kernel of cholesky.cu, for the plain and the fused-assembly
+    path: registers and spills (ptxas -v) and the dynamic shared memory of
+    its launch. Fails unless the kernels are exactly the expected ones, so
+    a renamed kernel cannot drop out of the breakdown unseen."""
+    import ctypes
+    import re
+    lib = build.load("cholesky")
+    lib.chol_smem_bytes.argtypes = [ctypes.c_int]
+    rows = {}
+    for mangled, res in build.kernel_resources(
+            build.build_log("cholesky")).items():
+        m = re.search(r"\d+([a-z_]+_kernel)ILb([01])E", mangled)
+        if m is None:
+            continue
+        kernel = m.group(1)
+        require(kernel in CHOL_KERNELS,
+                f"unknown kernel {kernel} in cholesky.cu")
+        rows[f"{kernel}<{'fused' if m.group(2) == '1' else 'plain'}>"] = {
+            **res, "smem_bytes": lib.chol_smem_bytes(
+                CHOL_KERNELS.index(kernel))}
+    want = {f"{k}<{v}>" for k in CHOL_KERNELS for v in ("plain", "fused")}
+    require(set(rows) == want, f"cholesky.cu kernels: expected "
+            f"{sorted(want)}, got {sorted(rows)}")
+    return rows
+
+
 def profiled(torch, fn, reps: int = 1, tries: int = 3):
-    """(wall ms, summed CUDA kernel time ms, {kernel name: summed ms}) of
-    ``reps`` calls of ``fn`` under torch.profiler (CUPTI kernel records;
-    names without namespace, template or argument list). A window that
-    comes back with no kernel records at all (it happens now and then with
-    short windows) is run again, up to ``tries`` times."""
+    """(wall ms, summed CUDA kernel time ms, {kernel name: summed ms},
+    [(kernel name, start us, end us)]) of ``reps`` calls of ``fn`` under
+    torch.profiler (CUPTI kernel records; names without namespace,
+    template or argument list). A window that comes back with no kernel
+    records at all (it happens now and then with short windows) is run
+    again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
         torch.cuda.synchronize()
@@ -216,15 +295,44 @@ def profiled(torch, fn, reps: int = 1, tries: int = 3):
         by_kernel = {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = e.key.replace("(anonymous namespace)::", "")
-                name = name.split("(")[0].split("<")[0].split("::")[-1]
-                name = name.split()[-1]
+                name = kernel_name(e.key)
                 by_kernel[name] = by_kernel.get(name, 0.0) \
                     + e.self_device_time_total / 1e3
         busy_ms = sum(by_kernel.values())
         if busy_ms > 0:
             break
-    return wall * 1e3, busy_ms, by_kernel
+    intervals = kernel_intervals(torch, prof)
+    require(busy_ms == 0 or intervals,
+            "the profiler summed kernel time but listed no kernel records")
+    return wall * 1e3, busy_ms, by_kernel, intervals
+
+
+def factor_timing(torch, run, library, n_b: int, reps: int = 5) -> dict:
+    """A blocked factor (B5 or B6, ``n_b`` 64-wide steps) beside cuSOLVER's
+    ``library`` call: both timed in turns (``turns_ms``: median, min and
+    max of 20 samples, each 3 back-to-back calls between CUDA events), then
+    ``reps`` factors under torch.profiler: per factor the summed kernel time
+    and the union of the kernel intervals (the step kernels and the
+    trailing updates run on two streams and overlap), the breakdown by
+    kernel (chol_step_kernel: the column update left from step k-1, the
+    diagonal tile's factor and the panel; chol_trailing_kernel: the rest
+    of the trailing update), and the median step kernel of the last 8
+    steps, beside which only small trailing updates run."""
+    kt, lt = turns_ms(torch, run, library)
+    _, kernel_sum, _, intervals = profiled(torch, run, reps)
+    steps = sorted((r for r in intervals if r[0] == "chol_step_kernel"),
+                   key=lambda r: r[1])
+    late = [stop - start for i, (_, start, stop) in enumerate(steps)
+            if i % n_b >= n_b - 8]
+    return {"timed_by": "cuda_events_in_turns", "ms": kt["median"],
+            "ms_min_max": [kt["min"], kt["max"]], "samples": kt["n"],
+            "library_ms": lt["median"],
+            "library_min_max": [lt["min"], lt["max"]],
+            "ratio_to_library": kt["median"] / lt["median"],
+            "kernel_sum_ms": kernel_sum / reps,
+            "device_busy_ms": busy_union_ms(intervals) / reps,
+            "kernel_breakdown": kernel_breakdown(intervals, reps),
+            "step_late_median_us": statistics.median(late) if late else None}
 
 
 def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -238,10 +346,14 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def device_busy_share(torch, fn) -> dict:
-    """Run ``fn`` once under torch.profiler: the summed device time of the
-    CUDA kernels over the wall time of the window."""
-    wall, busy, _ = profiled(torch, fn)
+    """Run ``fn`` once under torch.profiler: the time the card ran at least
+    one kernel (the union of the kernel intervals) over the wall time of
+    the window, beside the summed kernel time (larger where streams
+    overlap)."""
+    wall, kernel_sum, _, intervals = profiled(torch, fn)
+    busy = busy_union_ms(intervals)
     return {"window_ms": wall, "device_busy_ms": busy,
+            "kernel_sum_ms": kernel_sum,
             "idle_share": max(0.0, 1.0 - busy / wall)}
 
 
@@ -589,6 +701,7 @@ def main() -> int:
                            .splitlines() if "registers" in line]
                     for name in build.SOURCES}})
     emit({"phase": "build", "flash_kernels": flash_build_report(build)})
+    emit({"phase": "build", "cholesky_kernels": chol_build_report(build)})
 
     # -- 2. kernels against their plain versions ----------------------------
     def field(n, w=72):
@@ -760,6 +873,15 @@ def main() -> int:
         return (torch.linalg.matrix_norm(l @ l.T - a)
                 / torch.linalg.matrix_norm(a)).item()
 
+    # the factor's written-out square root and division against the
+    # intrinsics whose bits they promise (csrc/cholesky.cu)
+    fast = cholesky.fast_path_check(dev)
+    require(fast["sqrt_unequal"] == 0 and fast["div_unequal"] == 0
+            and fast["sqrt_fast"] + fast["sqrt_slow"] == 2 ** 31
+            and fast["div_fast"] + fast["div_slow"] == 2 ** 26,
+            f"cholesky.cu fast paths against __fsqrt_rn / __fdiv_rn: {fast}")
+    emit({"phase": "kernels", "check": "chol_fast_paths", **fast})
+
     chol_tol = {"rtol": 2e-4, "atol": 2e-4, "residual": 1e-4}
     for n, block in ((4096, 512), (4000, 512), (83, 64)):
         n_p = -(-n // block) * block
@@ -784,21 +906,25 @@ def main() -> int:
         b_ms, b_by = bound_ms(2 * n_p * n_p * 4, n_p ** 3 / 3)
         r = {"kernel": "chol_blocked", "shape": [n, n], "padded": n_p,
              "block": block, "max_abs_err": err, "residual": resid,
-             "tolerance": chol_tol, "timed_by": "cuda_events",
-             "ms": call_ms(torch, run, reps=5, inner=3),
-             "kernel_ms": device_ms(torch, run, reps=5),
+             "tolerance": chol_tol,
+             # cuSOLVER potrf; cholesky_ex skips the check that would
+             # copy its status to the host after every call
+             **factor_timing(torch, run, lambda: torch.linalg.cholesky_ex(
+                 ap), n_p // 64),
              "call_ms": call_ms(torch, lambda: ops.chol_factor(
                  a, block=block), reps=5, inner=3),
              "plain_ms": call_ms(torch, plain, reps=1, inner=1, warmup=0),
-             # cuSOLVER potrf; cholesky_ex skips the check that would
-             # copy its status to the host after every call
-             "library_ms": call_ms(torch, lambda: torch.linalg.cholesky_ex(
-                 ap), reps=5, inner=3),
              "bound_ms": b_ms, "bound_by": b_by}
         if n == 4096:
-            # where the factor's time goes: diag / panel / trailing steps
-            r["kernel_breakdown_ms"] = {
-                k: v / 5 for k, v in profiled(torch, run, reps=5)[2].items()}
+            # inside the step kernel: SM cycles of block 0's phases, the
+            # median over the 64 steps, and the first, middle and last steps
+            cholesky.chol_phase_cycles(ap)
+            torch.cuda.synchronize()
+            steps = cholesky.chol_phase_cycles(ap)
+            r["step_phase_cycles"] = {
+                "median": {ph: statistics.median(s[ph] for s in steps)
+                           for ph in steps[0]},
+                **{f"step_{k}": steps[k] for k in (0, 1, 32, 62, 63)}}
         results[("chol_blocked", n)] = r
         emit({"phase": "kernels", **r})
 
@@ -844,19 +970,15 @@ def main() -> int:
                  "shape": [n, 8], "padded": n_p, "block": block,
                  "bitwise_vs_chol_blocked": True, "max_abs_err": err,
                  "residual": resid, "tolerance": chol_tol,
-                 "timed_by": "cuda_events",
-                 "ms": call_ms(torch, run, reps=5, inner=3),
-                 "kernel_ms": device_ms(torch, run, reps=5),
+                 # cuSOLVER potrf of the assembled matrix, the assembly
+                 # not included
+                 **factor_timing(torch, run, lambda: torch.linalg.cholesky_ex(
+                     k), n_p // 64),
+                 "library_includes_assembly": False,
                  "call_ms": call_ms(torch, lambda: ops.gp_chol(
                      xp[:n], block=block, **kw), reps=5, inner=3),
                  "plain_ms": call_ms(torch, plain, reps=1, inner=1,
                                      warmup=0),
-                 # cuSOLVER potrf of the assembled matrix, the assembly
-                 # not included
-                 "library_ms": call_ms(
-                     torch, lambda: torch.linalg.cholesky_ex(k), reps=5,
-                     inner=3),
-                 "library_includes_assembly": False,
                  "bound_ms": b_ms, "bound_by": b_by}
             results[("gp_chol_blocked", kind, n)] = r
             emit({"phase": "kernels", **r})

@@ -1,9 +1,10 @@
 // Pieces shared by the port's CUDA sources (each .cu compiles on its own
 // into its own library and includes this header):
-//  * the 64 x 64 tile machinery of the blocked Cholesky and the triangular
-//    solve: shared-memory tile loads, the 64 x 64 x 64 tile product into a
-//    4 x 4 register tile per thread, and the inverse of a lower-triangular
-//    tile by forward substitution;
+//  * the tile edge and block size of the blocked Cholesky and the
+//    triangular solve, and the triangular solve's 64 x 64 tile machinery:
+//    shared-memory tile loads, the 64 x 64 x 64 tile product into a 4 x 4
+//    register tile per thread, and the inverse of a lower-triangular tile
+//    by forward substitution;
 //  * the GP covariance arithmetic of gp.cu, in the order of the plain
 //    versions (repro_torch/kernels/ref.py: gp_sqdist_ref, gp_kernel_fn):
 //    one rounded multiply and one rounded add per feature, IEEE division,

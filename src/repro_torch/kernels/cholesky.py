@@ -10,6 +10,11 @@ path is ``ref.chol_blocked_ref`` / ``ref.gp_chol_blocked_ref`` /
 ``ref.tri_solve_blocked_ref``, chosen by ``kernels.ops``, which also pads to
 the reference's tile multiples. Each wrapper counts the calls that launched
 in ``<fn>.launches`` (one per call, however many kernels the call runs).
+
+The factorizations run on the caller's current stream and on a stream of
+their own made per call (the step kernels run ahead of the trailing
+updates); the caller's stream waits for both before the call returns, so
+the result is used on that stream like any other output.
 """
 from __future__ import annotations
 
@@ -47,6 +52,55 @@ def _chol_launchers():
     return lib, chol, gp_chol
 
 
+def fast_path_check(device) -> dict:
+    """Run ``csrc/cholesky.cu``'s check of its written-out square root and
+    division against ``__fsqrt_rn`` and ``__fdiv_rn`` on ``device`` (a CUDA
+    device): every non-negative float through the root, 2^26 random pairs
+    through the division. -> counts of inputs on each fast path, of those
+    unequal to the intrinsic, and of inputs sent to the slow paths."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"fast_path_check runs on a CUDA device, got "
+                         f"{device}")
+    counts = torch.zeros(6, dtype=torch.int64, device=device)
+    lib, _, _ = _chol_launchers()
+    lib.chol_fast_path_check.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.chol_fast_path_check.restype = ctypes.c_int
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.chol_fast_path_check(counts.data_ptr(), stream)
+    build.check(lib, err, "chol_fast_path_check launch")
+    keys = ("sqrt_fast", "sqrt_unequal", "div_fast", "div_unequal",
+            "sqrt_slow", "div_slow")
+    return dict(zip(keys, counts.tolist()))
+
+
+def chol_phase_cycles(a: torch.Tensor) -> list:
+    """``chol_blocked``'s factor of ``a`` with block 0 of each step kernel
+    recording its clock (``csrc/cholesky.cu``'s chol_launch_traced) -> per
+    step, the SM cycles of its phases: "update" (the diagonal tile's update
+    from the step before), "factor" (the diagonal tile's factor, beside
+    which warps 4 .. 7 update the panel tile), "panel" (the panel rows'
+    substitution), "out" (writing L). A measurement, not counted in
+    ``chol_blocked.launches``."""
+    n_p = a.shape[0] if a.dim() == 2 else -1
+    _check_input("chol_phase_cycles", a, n_p, n_p)
+    out, lkk = _factor_buffers(n_p, a.device)
+    trace = torch.zeros((n_p // TILE, 8), dtype=torch.int64, device=a.device)
+    lib, _, _ = _chol_launchers()
+    fn = lib.chol_launch_traced
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(a.data_ptr(), n_p, out.data_ptr(), lkk.data_ptr(),
+                 trace.data_ptr(), stream)
+    build.check(lib, err, "chol_launch_traced launch")
+    t = trace.cpu()
+    return [{name: int(t[k, i + 1] - t[k, i])
+             for i, name in enumerate(("update", "factor", "panel", "out"))}
+            for k in range(t.shape[0])]
+
+
 def _check_input(name, t, rows, cols):
     """Raise unless ``t`` is a contiguous f32 CUDA (rows, cols) tensor with
     ``rows`` a multiple of the tile edge (``cols`` None: any width)."""
@@ -62,9 +116,11 @@ def _check_input(name, t, rows, cols):
 
 
 def _factor_buffers(n_p, device):
+    """The factor and the 64 x 64 scratch tile that holds a step's
+    diagonal factor until the next step moves it into place."""
     out = torch.empty((n_p, n_p), dtype=torch.float32, device=device)
-    linv = torch.empty((TILE, TILE), dtype=torch.float32, device=device)
-    return out, linv
+    lkk = torch.empty((TILE, TILE), dtype=torch.float32, device=device)
+    return out, lkk
 
 
 def chol_blocked(a: torch.Tensor) -> torch.Tensor:
@@ -75,11 +131,11 @@ def chol_blocked(a: torch.Tensor) -> torch.Tensor:
     version does: no error for a matrix that is not positive definite."""
     n_p = a.shape[0] if a.dim() == 2 else -1
     _check_input("chol_blocked", a, n_p, n_p)
-    out, linv = _factor_buffers(n_p, a.device)
+    out, lkk = _factor_buffers(n_p, a.device)
     lib, fn, _ = _chol_launchers()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(a.data_ptr(), n_p, out.data_ptr(), linv.data_ptr(), stream)
+        err = fn(a.data_ptr(), n_p, out.data_ptr(), lkk.data_ptr(), stream)
     build.check(lib, err, "chol_blocked launch")
     build.count_launch(chol_blocked)
     return out
@@ -101,13 +157,13 @@ def gp_chol_blocked(x: torch.Tensor, n: int, *, kind: str,
         raise ValueError(f"true size n = {n} outside 0..{n_p}")
     if kind not in ("matern52", "rbf"):
         raise ValueError(f"unknown GP kernel kind: {kind}")
-    out, linv = _factor_buffers(n_p, x.device)
+    out, lkk = _factor_buffers(n_p, x.device)
     lib, _, fn = _chol_launchers()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), n_p, int(n), d, KINDS[kind],
                  float(lengthscale), float(nugget), out.data_ptr(),
-                 linv.data_ptr(), stream)
+                 lkk.data_ptr(), stream)
     build.check(lib, err, "gp_chol_blocked launch")
     build.count_launch(gp_chol_blocked)
     return out

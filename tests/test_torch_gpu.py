@@ -154,7 +154,11 @@ def _spd(n, g, dev):
 # left-looking, recursive tile factor) sum in other orders: the tolerance
 # the reference's bench holds between two algorithms for one factor
 # (benchmarks/run.py:593-595), and a relative residual under 1e-4.
-@pytest.mark.parametrize("n,block", [(256, 64), (512, 256), (200, 64)])
+# 1000 -> 1024: 16 steps, where each step kernel runs beside the trailing
+# update of the step before; 4000 -> 4032: 63 steps, an odd tile count, so
+# the 128-wide trailing blocks leave a 64-wide edge
+@pytest.mark.parametrize("n,block", [(256, 64), (512, 256), (200, 64),
+                                     (1000, 512), (4000, 64)])
 def test_chol_kernel_matches_plain(cuda, n, block):
     g = _gen(cuda, n + block)
     a = _spd(n, g, cuda)
@@ -169,6 +173,84 @@ def test_chol_kernel_matches_plain(cuda, n, block):
     l = got[:n, :n]
     resid = torch.linalg.matrix_norm(l @ l.T - a) / torch.linalg.matrix_norm(a)
     assert resid.item() < 1e-4
+
+
+def test_chol_fast_paths_equal_the_intrinsics(cuda):
+    """The factor's written-out square root and division give the bits of
+    __fsqrt_rn and __fdiv_rn wherever they do not defer to them: every
+    non-negative float, 2^26 random pairs."""
+    got = cholesky.fast_path_check(cuda)
+    assert got["sqrt_unequal"] == 0 and got["div_unequal"] == 0, got
+    assert got["sqrt_fast"] + got["sqrt_slow"] == 2 ** 31
+    assert got["div_fast"] + got["div_slow"] == 2 ** 26
+    assert got["sqrt_fast"] > 1.8e9 and got["div_fast"] > 2 ** 24
+
+
+@pytest.mark.parametrize("case", ["zero-row", "negative-pivot"])
+def test_chol_kernel_guards_pivots_as_the_plain_version(cuda, case):
+    """A zero pivot (a zero row and column in the second tile) or a
+    negative one, as tests/test_torch_cholesky.py builds them on the CPU:
+    no error, the same finite entries as the plain version, the guarded
+    pivot sqrt(1e-30) = 1e-15, the rest within 2e-4."""
+    a = _spd(128, _gen(cuda, 3), cuda)
+    p = 70 if case == "zero-row" else 3
+    a[p, :] = 0.0
+    a[:, p] = 0.0
+    if case == "negative-pivot":
+        a[p, p] = -1.0
+    got = cholesky.chol_blocked(a)
+    expect = ref.chol_blocked_ref(a, block=64)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(expect))
+    torch.testing.assert_close(got, expect, rtol=2e-4, atol=2e-4,
+                               equal_nan=True)
+    assert got[p, p].item() == torch.tensor(1e-15).item()
+
+
+def test_chol_kernel_from_eight_threads_at_once(cuda):
+    """Eight threads factor at once, each on a stream of its own (each call
+    makes its own second stream and events): each result equal to the
+    factor of the same matrix computed alone."""
+    import threading
+    mats = [_spd(640, _gen(cuda, 100 + t), cuda) for t in range(8)]
+    alone = [cholesky.chol_blocked(m) for m in mats]
+    torch.cuda.synchronize()
+    got = [None] * 8
+    start = threading.Barrier(8)
+
+    def work(t):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            start.wait()
+            got[t] = cholesky.chol_blocked(mats[t])
+        stream.synchronize()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for t in range(8):
+        assert torch.equal(got[t], alone[t]), f"thread {t}"
+
+
+def test_chol_kernel_on_a_side_stream_is_ordered_there(cuda):
+    """A factor on a non-default stream, consumed on that stream at once,
+    with no synchronize between: the caller's stream waits for all of the
+    factor's work, so the copy sees the finished factor."""
+    a = _spd(1024, _gen(cuda, 7), cuda)
+    expect = cholesky.chol_blocked(a)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.default_stream())
+    with torch.cuda.stream(stream):
+        got = cholesky.chol_blocked(a).clone()
+        fused = cholesky.gp_chol_blocked(
+            torch.rand((1024, 8), generator=_gen(cuda, 8), device=cuda),
+            1000, kind="rbf", lengthscale=0.3, nugget=1e-4).clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, expect)
+    assert torch.isfinite(fused).all() and not fused.triu(1).any()
 
 
 @pytest.mark.parametrize("kind", ["matern52", "rbf"])

@@ -470,3 +470,103 @@ def test_flash_build_report_requires_tensor_cores_in_bf16_kernels():
         "registers": 168, "HGMMA": 0, "HMMA": 0}
     with pytest.raises(RuntimeError, match="no tensor-core instruction"):
         smoke.flash_build_report(_fake_flash_build(0))
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _fake_profile(rows):
+    """A stand-in for a torch.profiler window: ``events()`` lists each
+    (name, device, start us, end us) row as a FunctionEvent would."""
+    import types
+    kinds = {"cuda": torch.autograd.DeviceType.CUDA,
+             "cpu": torch.autograd.DeviceType.CPU}
+    events = [types.SimpleNamespace(
+        name=name, device_type=kinds[dev],
+        time_range=types.SimpleNamespace(start=start, end=end))
+        for name, dev, start, end in rows]
+    return types.SimpleNamespace(events=lambda: events)
+
+
+def test_busy_share_is_the_union_of_kernel_intervals():
+    """Two streams' kernels overlap: the busy time is the union of the
+    kernel intervals, not their sum; host records do not count."""
+    smoke = _chip_smoke()
+    prof = _fake_profile([
+        ("void (anonymous namespace)::chol_step_kernel<false>(float const*, "
+         "GpArgs, int, int, float*, float*)", "cuda", 0.0, 10.0),
+        ("void (anonymous namespace)::chol_trailing_kernel<false>(float "
+         "const*, GpArgs, int, int, float*)", "cuda", 5.0, 30.0),
+        ("cudaLaunchKernel", "cpu", 0.0, 100.0),
+        ("void (anonymous namespace)::chol_step_kernel<true>(float const*, "
+         "GpArgs, int, int, float*, float*)", "cuda", 12.0, 20.0),
+        ("void at::native::vectorized_elementwise_kernel<4>(int)", "cuda",
+         40.0, 44.0)])
+    rows = smoke.kernel_intervals(torch, prof)
+    assert [r[0] for r in rows] == ["chol_step_kernel", "chol_trailing_kernel",
+                                    "chol_step_kernel",
+                                    "vectorized_elementwise_kernel"]
+    assert smoke.busy_union_ms(rows) == pytest.approx(0.034)
+    assert sum(stop - start for _, start, stop in rows) / 1e3 \
+        == pytest.approx(0.047)
+    assert smoke.busy_union_ms([]) == 0.0
+
+
+def test_kernel_breakdown_groups_launches_per_rep():
+    smoke = _chip_smoke()
+    rows = [("chol_step_kernel", 0.0, 10.0), ("chol_trailing_kernel", 5.0, 30.0),
+            ("chol_step_kernel", 40.0, 44.0), ("chol_step_kernel", 50.0, 56.0),
+            ("chol_trailing_kernel", 60.0, 61.0),
+            ("chol_step_kernel", 70.0, 72.0)]
+    got = smoke.kernel_breakdown(rows, reps=2)
+    assert got["chol_step_kernel"] == {
+        "ms": pytest.approx(0.011), "launches": 2.0, "median_us": 5.0,
+        "min_us": 2.0, "max_us": 10.0}
+    assert got["chol_trailing_kernel"] == {
+        "ms": pytest.approx(0.013), "launches": 1.0, "median_us": 13.0,
+        "min_us": 1.0, "max_us": 25.0}
+
+
+def _fake_chol_build(kernels):
+    """A stand-in for ``build`` whose cholesky library has ``kernels``,
+    each in the plain (ILb0E) and the fused (ILb1E) instantiation, named
+    as nvcc mangles them in the file's anonymous namespace."""
+    import types
+    names = [f"_ZN12_GLOBAL__N_1{len(k)}{k}ILb{b}EEEvPKfNS_6GpArgsEiiPf"
+             for k in kernels for b in (0, 1)]
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used {100 + i} registers, used 1 barriers"
+        for i, name in enumerate(names))
+    lib = types.SimpleNamespace(chol_smem_bytes=lambda which: 67000 + which)
+    return types.SimpleNamespace(
+        load=lambda name: lib, build_log=lambda name: log,
+        kernel_resources=build.kernel_resources)
+
+
+def test_chol_build_report_names_every_kernel():
+    """chip_smoke's build line for cholesky.cu: each kernel, plain and
+    fused, with registers, spills and its launch's dynamic shared memory;
+    a missing or unknown kernel fails the phase."""
+    smoke = _chip_smoke()
+    rows = smoke.chol_build_report(_fake_chol_build(smoke.CHOL_KERNELS))
+    assert sorted(rows) == ["chol_step_kernel<fused>", "chol_step_kernel<plain>",
+                            "chol_trailing_kernel<fused>",
+                            "chol_trailing_kernel<plain>"]
+    assert rows["chol_trailing_kernel<fused>"] == {
+        "registers": 103, "spill_stores": 0, "spill_loads": 0,
+        "smem_bytes": 67001}
+    with pytest.raises(RuntimeError, match="expected"):
+        smoke.chol_build_report(_fake_chol_build(("chol_step_kernel",)))
+    with pytest.raises(RuntimeError, match="unknown kernel chol_diag_kernel"):
+        smoke.chol_build_report(_fake_chol_build(
+            (*smoke.CHOL_KERNELS, "chol_diag_kernel")))

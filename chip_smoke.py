@@ -15,7 +15,10 @@ Phases (any failure exits non-zero):
               spills, dynamic shared memory (bf16) and HGMMA/HMMA count
               from cuobjdump -sass (a bf16 kernel with none fails); a third
               the same of cholesky.cu's kernels (registers, spills, dynamic
-              shared memory), which must be exactly the expected four.
+              shared memory), which must be exactly the expected four; a
+              fourth the registers and spills of diffusion.cu's and
+              trisolve.cu's kernels, which must be exactly the expected
+              seven.
   2. kernels  each kernel against its plain version at the main paths'
               shapes, dominance also with the +BIG rows that ranking
               writes for empty slots (diffusion and the GP assembly
@@ -35,7 +38,18 @@ Phases (any failure exits non-zero):
               cholesky_ex's times between CUDA events, taken in turns
               (median of 20 samples, with min and max), beside the
               profiler's summed kernel time, the union of its kernel
-              intervals, and the time by kernel (factor_timing).
+              intervals, and the time by kernel (factor_timing). For the
+              diffusion stencil and the triangular solve, "ms" and
+              "library_ms" (F.conv2d; trsm) are medians of 20 samples taken
+              in turns, each sample 10 (library 3) back-to-back calls
+              queued behind a spinning card (turns_ms with hold_cycles),
+              so that they read the card's time and not the host's launch
+              cost; beside them the stencil's GB/s and both kernels' share
+              of their bound, the profiler's time ("profiler_ms" for the
+              stencil; for the solve its two kernels, the pack kernel with
+              the diagonal tiles' inverses and the solve, by kernel), and
+              the stencil once more on its cp.async route (a world of odd
+              width; a field off a 16-byte boundary).
   3. parity   simulate_batch on the card against the CPU plain path, same
               Gumbel noise, REDUCED config: first-empty ticks equal; and
               gp_fit on the card against the CPU plain path at n = 80.
@@ -140,31 +154,44 @@ def call_ms(torch, fn, reps: int = 15, inner: int = 10,
 
 
 def turns_ms(torch, kernel, library, reps: int = 10, inner: int = 3,
-             warmup: int = 2) -> tuple:
+             warmup: int = 2, hold_cycles: int = 0,
+             library_inner: int = None) -> tuple:
     """``kernel`` and its ``library`` yardstick timed in turns (kernel,
     library, library, kernel) ``reps`` times, each sample ``inner``
     back-to-back calls between two CUDA events: -> ({"median", "min",
-    "max", "n"} ms per call of the kernel, the same of the library)."""
-    def sample(fn):
+    "max", "n"} ms per call of the kernel, the same of the library).
+    With ``hold_cycles``, the card spins that many cycles
+    (torch.cuda._sleep) before each sample, while the host queues the
+    sample's calls behind it: the events then read the card's time for
+    the calls, not the host's time to launch them (small kernels launch
+    slower than they run)."""
+    def sample(fn, n):
+        if hold_cycles:
+            torch.cuda._sleep(hold_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
+        for _ in range(n):
             fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / inner
+        return start.elapsed_time(end) / n
 
+    lib_inner = inner if library_inner is None else library_inner
     for _ in range(warmup):
         kernel()
         library()
     ks, ls = [], []
     for _ in range(reps):
-        ks.append(sample(kernel))
-        ls.extend((sample(library), sample(library)))
-        ks.append(sample(kernel))
+        ks.append(sample(kernel, inner))
+        ls.extend((sample(library, lib_inner), sample(library, lib_inner)))
+        ks.append(sample(kernel, inner))
     return tuple({"median": statistics.median(x), "min": min(x),
                   "max": max(x), "n": len(x)} for x in (ks, ls))
+
+
+HOLD_CYCLES = 2_000_000     # ~1 ms of a spinning card: the host queues a
+                            # sample's calls meanwhile
 
 
 def flash_build_report(build) -> dict:
@@ -272,6 +299,40 @@ def chol_build_report(build) -> dict:
     want = {f"{k}<{v}>" for k in CHOL_KERNELS for v in ("plain", "fused")}
     require(set(rows) == want, f"cholesky.cu kernels: expected "
             f"{sorted(want)}, got {sorted(rows)}")
+    return rows
+
+
+def stencil_solve_build_report(build) -> dict:
+    """Every kernel of diffusion.cu (each route, with a ring of two
+    worlds or one world) and trisolve.cu (the pack kernel, which also
+    inverts the diagonal tiles, and the solve at each strip width):
+    registers and spills (ptxas -v). Fails unless the kernels are exactly
+    the expected ones."""
+    import re
+    want = {f"diffuse_evaporate_kernel<{route},{ring}>"
+            for route in ("bulk", "cp_async") for ring in ("ring", "one")}
+    want |= {"trisolve_pack_kernel"} | {f"trisolve_kernel<{w}>"
+                                        for w in (16, 64)}
+    rows = {}
+    for source in ("diffusion", "trisolve"):
+        for mangled, res in build.kernel_resources(
+                build.build_log(source)).items():
+            m = re.search(r"diffuse_evaporate_kernelILb([01])ELb([01])E",
+                          mangled)
+            if m:
+                name = (f"diffuse_evaporate_kernel<"
+                        f"{'bulk' if m.group(1) == '1' else 'cp_async'},"
+                        f"{'ring' if m.group(2) == '1' else 'one'}>")
+            elif "trisolve_pack_kernel" in mangled:
+                name = "trisolve_pack_kernel"
+            elif (m := re.search(r"trisolve_kernelILi(\d+)E", mangled)):
+                name = f"trisolve_kernel<{m.group(1)}>"
+            else:
+                name = mangled
+            require(name in want, f"unknown kernel {name} in {source}.cu")
+            rows[name] = res
+    require(set(rows) == want, f"diffusion.cu / trisolve.cu kernels: "
+            f"expected {sorted(want)}, got {sorted(rows)}")
     return rows
 
 
@@ -702,6 +763,8 @@ def main() -> int:
                     for name in build.SOURCES}})
     emit({"phase": "build", "flash_kernels": flash_build_report(build)})
     emit({"phase": "build", "cholesky_kernels": chol_build_report(build)})
+    emit({"phase": "build",
+          "stencil_solve_kernels": stencil_solve_build_report(build)})
 
     # -- 2. kernels against their plain versions ----------------------------
     def field(n, w=72):
@@ -719,6 +782,7 @@ def main() -> int:
         acc = F.conv2d(share[:, None], stencil, padding=1)[:, 0]
         return (chem - share * ncount + acc) * (1.0 - evap[:, None, None])
 
+    sms = build.sm_count(torch.cuda.current_device())
     results = {}
     for n in (640, 20480):
         chem, rate, evap = field(n)
@@ -729,22 +793,49 @@ def main() -> int:
         lib_err = (library_diffusion(chem, rate, evap) - plain).abs().max()
         require(torch.equal(got, plain), f"diffuse_evaporate bitwise at "
                 f"({n},72,72), max abs err {err}")
-        b_ms, b_by = bound_ms(2 * chem.numel() * 4 + 2 * n * 4,
-                              chem.numel() * DIFFUSION_OPS_PER_PATCH)
+        n_bytes = 2 * chem.numel() * 4 + 2 * n * 4
+        b_ms, b_by = bound_ms(n_bytes, chem.numel() * DIFFUSION_OPS_PER_PATCH)
+        run = lambda: diffusion.diffuse_evaporate(  # noqa: E731
+            chem, rate, evap)
+        kt, lt = turns_ms(
+            torch, run, lambda: library_diffusion(chem, rate, evap),
+            inner=10, library_inner=3, hold_cycles=HOLD_CYCLES)
         r = {"kernel": "diffuse_evaporate", "shape": [n, 72, 72],
              "bitwise": True, "max_abs_err": err,
-             "ms": device_ms(torch, lambda: diffusion.diffuse_evaporate(
-                 chem, rate, evap)),
-             "call_ms": call_ms(torch, lambda: diffusion.diffuse_evaporate(
-                 chem, rate, evap)),
+             "route": diffusion.route(chem),
+             "launch": dataclasses.asdict(diffusion.launch_config(n, 72, sms)),
+             "timed_by": "cuda_events_in_turns_queued",
+             "ms": kt["median"], "ms_min_max": [kt["min"], kt["max"]],
+             "samples": kt["n"], "library_ms": lt["median"],
+             "library_min_max": [lt["min"], lt["max"]],
+             "ratio_to_library": kt["median"] / lt["median"],
+             "gb_per_s": n_bytes / kt["median"] / 1e6,
+             "bound_share": b_ms / kt["median"],
+             "profiler_ms": device_ms(torch, run),
+             "call_ms": call_ms(torch, run),
              "plain_ms": device_ms(torch, lambda: ref.diffuse_evaporate_ref(
-                 chem, rate, evap)),
-             "library_ms": device_ms(torch, lambda: library_diffusion(
                  chem, rate, evap)),
              "library_max_abs_err": lib_err.item(),
              "bound_ms": b_ms, "bound_by": b_by}
         results[("diffuse_evaporate", n)] = r
         emit({"phase": "kernels", **r})
+    # the cp.async route: a world of odd width, and the paper's world in a
+    # field that does not start on a 16-byte boundary
+    for n, w, offset in ((640, 33, 0), (640, 72, 1)):
+        base = torch.rand((n * w * w + offset,), generator=gen,
+                          device=dev) * 100.0
+        chem = base[offset:].view(n, w, w)
+        rate, evap = field(n, w)[1:]
+        got = diffusion.diffuse_evaporate(chem, rate, evap)
+        require(torch.equal(got, ref.diffuse_evaporate_ref(chem, rate, evap))
+                and diffusion.route(chem) == "cp_async",
+                f"diffuse_evaporate bitwise on the cp.async route at "
+                f"({n},{w},{w}) offset {offset}")
+        emit({"phase": "kernels", "kernel": "diffuse_evaporate",
+              "shape": [n, w, w], "offset_floats": offset,
+              "route": "cp_async", "bitwise": True,
+              "profiler_ms": device_ms(torch, lambda: diffusion
+                                       .diffuse_evaporate(chem, rate, evap))})
 
     def objectives(n):
         # first-empty ticks: integers in [0, 1000], many ties
@@ -1018,15 +1109,30 @@ def main() -> int:
                 f"tri_solve trans={trans} at ({n},{m}): rel err {rel}, "
                 f"residual {resid}")
         b_ms, b_by = bound_ms((n * n + 2 * n * m_p) * 4, n * n * m_p)
+        kt, lt = turns_ms(torch, run, library, inner=10, library_inner=3,
+                          hold_cycles=HOLD_CYCLES)
+        # the diagonal work (the pack kernel: the diagonal tiles' inverses,
+        # beside the copies of L's blocks) against the solve
+        _, kernel_sum, _, intervals = profiled(torch, run, 5)
+        strip = cholesky.solve_strip(n, m_p, sms)
         r = {"kernel": "tri_solve", "trans": trans, "shape": [n, m],
-             "padded_rhs": m_p, "max_abs_err": err, "rel_err": rel,
+             "padded_rhs": m_p, "strip": strip,
+             "resident": cholesky.solve_resident(n, strip),
+             "max_abs_err": err, "rel_err": rel,
              "residual": resid, "tolerance": {"rel_err": 1e-4,
                                               "residual": 1e-5},
-             "ms": device_ms(torch, run),
+             "timed_by": "cuda_events_in_turns_queued",
+             "ms": kt["median"], "ms_min_max": [kt["min"], kt["max"]],
+             "samples": kt["n"], "library_ms": lt["median"],
+             "library_min_max": [lt["min"], lt["max"]],
+             "ratio_to_library": kt["median"] / lt["median"],
+             "bound_share": b_ms / kt["median"],
+             "kernel_sum_ms": kernel_sum / 5,
+             "device_busy_ms": busy_union_ms(intervals) / 5,
+             "kernel_breakdown": kernel_breakdown(intervals, 5),
              "call_ms": call_ms(torch, lambda: ops.tri_solve(
                  l, b, trans=trans), reps=5, inner=3),
              "plain_ms": device_ms(torch, plain, reps=3),
-             "library_ms": device_ms(torch, library),
              "bound_ms": b_ms, "bound_by": b_by}
         results[("tri_solve", trans, n, m)] = r
         emit({"phase": "kernels", **r})
@@ -1445,6 +1551,9 @@ def main() -> int:
         ("gp_chol_blocked", ("gp_chol_blocked", "matern52", 4096),
          "cholesky.cu", "src/repro/kernels/cholesky.py:202", "gp_chol"),
         ("tri_solve", ("tri_solve", False, 512, 50000), "trisolve.cu",
+         "src/repro/kernels/cholesky.py:282", "surrogate_big"),
+        # the backward solve: the same kernels, off every path
+        ("tri_solve_backward", ("tri_solve", True, 512, 2048), "trisolve.cu",
          "src/repro/kernels/cholesky.py:282", "surrogate_big"),
         # the flash rows: bf16 (the config's dtype) at (4, 4096, 9/3, 64)
         ("flash_attention", ("flash_attention", "bf16"), "flash.cu",

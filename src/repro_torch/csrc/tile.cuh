@@ -1,10 +1,6 @@
-// Pieces shared by the port's CUDA sources (each .cu compiles on its own
-// into its own library and includes this header):
-//  * the tile edge and block size of the blocked Cholesky and the
-//    triangular solve, and the triangular solve's 64 x 64 tile machinery:
-//    shared-memory tile loads, the 64 x 64 x 64 tile product into a 4 x 4
-//    register tile per thread, and the inverse of a lower-triangular tile
-//    by forward substitution;
+// Pieces shared by cholesky.cu and gp.cu (each .cu compiles on its own into
+// its own library and includes this header):
+//  * the blocked Cholesky's tile edge and threads per block;
 //  * the GP covariance arithmetic of gp.cu, in the order of the plain
 //    versions (repro_torch/kernels/ref.py: gp_sqdist_ref, gp_kernel_fn):
 //    one rounded multiply and one rounded add per feature, IEEE division,
@@ -17,74 +13,11 @@
 namespace {
 
 constexpr int kTile = 64;
-constexpr int kPad = kTile + 1;   // shared-memory row stride: no bank conflicts
-constexpr int kThreads = 256;     // 16 x 16 threads, each a 4 x 4 register tile
+constexpr int kThreads = 256;
 
 constexpr int kSqdist = 0;
 constexpr int kMatern52 = 1;
 constexpr int kRbf = 2;
-
-// Inverse of the lower-triangular 64 x 64 tile s_l (stride kPad) into s_inv
-// (stride kPad) by forward substitution on the identity. Thread j < 64 owns
-// column j and reads only the column it writes, so no barrier is needed
-// inside; the caller synchronises before and after.
-__device__ void tri_inv_tile(const float* s_l, float* s_inv) {
-  const int j = threadIdx.x;
-  if (j >= kTile) return;
-  for (int i = 0; i < kTile; ++i) {
-    float v = 0.0f;
-    if (i >= j) {
-      float s = i == j ? 1.0f : 0.0f;
-      for (int k = j; k < i; ++k) {
-        s = fmaf(-s_l[i * kPad + k], s_inv[k * kPad + j], s);
-      }
-      v = s / s_l[i * kPad + i];
-    }
-    s_inv[i * kPad + j] = v;
-  }
-}
-
-// s_a[k][i] = A[i][k] of a 64 x 64 tile of row-major `src` (leading
-// dimension ld): A = src, or A = src^T when `transpose`.
-__device__ void load_left(float* s_a, const float* src, size_t ld,
-                          bool transpose) {
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int row = e / kTile, col = e % kTile;
-    const float v = src[static_cast<size_t>(row) * ld + col];
-    if (transpose) {
-      s_a[row * kPad + col] = v;   // A[col][row] = src[row][col]
-    } else {
-      s_a[col * kPad + row] = v;   // A[row][col] = src[row][col]
-    }
-  }
-}
-
-// s_b[k][c] = the 64 x 64 tile of row-major `src` (leading dimension ld)
-__device__ void load_right(float* s_b, const float* src, size_t ld) {
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int row = e / kTile, col = e % kTile;
-    s_b[row * kPad + col] = src[static_cast<size_t>(row) * ld + col];
-  }
-}
-
-// acc[a][b] += sign * sum_k A[ty + 16a][k] * B[k][tx + 16b], with
-// s_a[k][i] = A[i][k] and s_b[k][c] = B[k][c]
-__device__ void tile_product(float (&acc)[4][4], const float* s_a,
-                             const float* s_b, int tx, int ty, float sign) {
-#pragma unroll 8
-  for (int k = 0; k < kTile; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) av[a] = sign * s_a[k * kPad + ty + 16 * a];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) bv[b] = s_b[k * kPad + tx + 16 * b];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-  }
-}
 
 // sum_k a[k * sa] * b[k * sb] over d >= 1 features, from the product of
 // feature 0 upwards, each product and sum rounded on its own

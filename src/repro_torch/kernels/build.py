@@ -28,6 +28,7 @@ lock, so they are exact after a pool run.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -45,6 +46,12 @@ SOURCES = ("cholesky", "diffusion", "dominance", "flash", "gp", "trisolve")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# Shared memory on an H100 (sm_90): what one block may take as dynamic
+# shared memory, what one SM holds, and what the runtime keeps per block
+SMEM_PER_BLOCK = 232_448
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1_024
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
@@ -177,6 +184,13 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             _LOADED[name] = ctypes.CDLL(str(path))
         return _LOADED[name]
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def count_launch(wrapper) -> None:

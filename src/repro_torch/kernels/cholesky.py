@@ -2,14 +2,17 @@
 factorization (``chol_blocked``, B5) and the same factorization with the GP
 covariance assembled inside it (``gp_chol_blocked``, B6), both in
 ``csrc/cholesky.cu``; and the blocked triangular solve
-(``tri_solve_blocked``, B7, ``csrc/trisolve.cu``): the diagonal-tile
-inverses, then the forward (L X = B) or backward (L^T X = B) solve.
+(``tri_solve_blocked``, B7, ``csrc/trisolve.cu``): L's operands packed with
+the diagonal-tile inverses, then the forward (L X = B) or backward
+(L^T X = B) solve in strips of B's columns (``solve_strip``).
 
 The wrappers take CUDA tensors only and launch the kernels or raise; the CPU
 path is ``ref.chol_blocked_ref`` / ``ref.gp_chol_blocked_ref`` /
 ``ref.tri_solve_blocked_ref``, chosen by ``kernels.ops``, which also pads to
 the reference's tile multiples. Each wrapper counts the calls that launched
-in ``<fn>.launches`` (one per call, however many kernels the call runs).
+in ``<fn>.launches`` (one per call, however many kernels the call runs);
+``tri_solve_blocked.launches`` counts the forward solves and
+``tri_solve_blocked.backward.launches`` the backward ones.
 
 The factorizations run on the caller's current stream and on a stream of
 their own made per call (the step kernels run ahead of the trailing
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 
@@ -27,13 +31,48 @@ from repro_torch.kernels import build
 from repro_torch.kernels.gp import KINDS, MAX_DIM
 
 TILE = 64            # the kernels' internal tile edge
+STRIPS = (64, 16)            # csrc/trisolve.cu's strip widths, widest first
+SOLVE_STAGES = 3             # its ring of packed 64 x 64 tiles
+SOLVE_BAR_BYTES = 128
+
+
+def solve_smem_bytes(strip: int, resident: int) -> int:
+    """Dynamic shared memory of ``csrc/trisolve.cu``'s solve kernel: its
+    ring, the B - acc tile, a tile of partial sums or read-back X, and
+    ``resident`` solved row blocks of the strip."""
+    return SOLVE_BAR_BYTES + 4 * (SOLVE_STAGES * TILE * TILE
+                                  + (2 + resident) * TILE * strip)
+
+
+def solve_resident(n_p: int, strip: int) -> int:
+    """Solved row blocks of a strip that shared memory holds, at most all
+    n_p / 64 of them."""
+    room = build.SMEM_PER_BLOCK - solve_smem_bytes(strip, 0)
+    return min(n_p // TILE, room // (4 * TILE * strip))
+
+
+def solve_strip(n_p: int, m_p: int, sms: int) -> int:
+    """Columns of B a block of the solve owns: 64 where that gives every SM
+    a strip (m_p / 64 >= sms) and keeps the whole solved panel in shared
+    memory; else 16, the most strips."""
+    for strip in STRIPS:
+        if m_p // strip >= sms and solve_resident(n_p, strip) == n_p // TILE:
+            return strip
+    return STRIPS[-1]
+
+
+def pack_tiles(n_p: int) -> int:
+    """64 x 64 tiles the solve reads from L: the blocks below the diagonal
+    and the diagonal tiles' inverses."""
+    nb = n_p // TILE
+    return nb * (nb + 1) // 2
 
 
 @functools.cache
 def _launcher():
     lib = build.load("trisolve")
     fn = lib.tri_solve_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return lib, fn
@@ -173,7 +212,9 @@ def tri_solve_blocked(l: torch.Tensor, b: torch.Tensor, *,
                       trans: bool = False) -> torch.Tensor:
     """L (n_p, n_p) lower triangular, B (n_p, m_p), contiguous f32 CUDA with
     n_p and m_p multiples of 64 -> X (n_p, m_p) with L X = B, or L^T X = B
-    when ``trans``."""
+    when ``trans``. A B that does not start on a 16-byte boundary (a view
+    into a larger tensor) is copied first: the kernel moves 16 bytes at a
+    time."""
     if l.device.type != "cuda":
         raise ValueError(f"tri_solve kernel needs CUDA tensors, got "
                          f"{l.device}")
@@ -190,19 +231,25 @@ def tri_solve_blocked(l: torch.Tensor, b: torch.Tensor, *,
                              f"got {t.dtype} on {t.device} with strides "
                              f"{t.stride()}")
     m = b.shape[1]
-    linv = torch.empty((n // TILE, TILE, TILE), dtype=torch.float32,
+    if b.data_ptr() % 16:
+        b = b.clone()
+    strip = solve_strip(n, m, build.sm_count(l.device.index))
+    pack = torch.empty((pack_tiles(n), TILE, TILE), dtype=torch.float32,
                        device=l.device)
     x = torch.empty_like(b)
     lib, fn = _launcher()
     with torch.cuda.device(l.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(l.data_ptr(), b.data_ptr(), n, m, int(bool(trans)),
-                 linv.data_ptr(), x.data_ptr(), stream)
+        err = fn(l.data_ptr(), b.data_ptr(), n, m, int(bool(trans)), strip,
+                 solve_resident(n, strip), pack.data_ptr(), x.data_ptr(),
+                 stream)
     build.check(lib, err, "tri_solve launch")
-    build.count_launch(tri_solve_blocked)
+    build.count_launch(tri_solve_blocked.backward if trans
+                       else tri_solve_blocked)
     return x
 
 
 chol_blocked.launches = 0
 gp_chol_blocked.launches = 0
 tri_solve_blocked.launches = 0
+tri_solve_blocked.backward = types.SimpleNamespace(launches=0)

@@ -4,10 +4,15 @@
 The wrapper takes CUDA tensors only and launches the kernel or raises; the
 CPU path is ``ref.diffuse_evaporate_ref``, chosen by ``kernels.ops``.
 ``diffuse_evaporate.launches`` counts the launches.
+
+The kernel runs persistent blocks that walk the lanes through a ring of
+worlds in shared memory; ``launch_config`` chooses its shape from the
+world's size and the card's SM count, and ``route`` how a world moves.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -16,12 +21,53 @@ from repro_torch.kernels import build
 
 MAX_WORLD = 238      # W*W*4 B must fit one block's 227 KB of shared memory
 
+BAR_BYTES = 128              # csrc/diffusion.cu's kBarBytes
+STENCIL_THREADS = 288        # about this many threads walk the stencil
+ROUTES = {"bulk": 0, "cp_async": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchConfig:
+    ring: bool         # two lane worlds and a share buffer, else one world
+    bands: int         # bands of rows, one thread per column of each
+    threads: int
+    smem_bytes: int
+    blocks_per_sm: int
+    grid: int
+
+
+def launch_config(n: int, w: int, sms: int) -> LaunchConfig:
+    """The persistent launch for ``n`` lanes of (w, w) worlds on a card of
+    ``sms`` SMs: a ring of two worlds beside a share buffer where one
+    block's shared memory holds the three, else one world; ``bands`` x w
+    threads walk the stencil, rounded up to whole warps; as many blocks as
+    the SMs hold at once, and no more than there are lanes."""
+    if not 1 <= w <= MAX_WORLD:
+        raise ValueError(f"world {w}x{w} outside 1..{MAX_WORLD}")
+    ring = BAR_BYTES + 3 * w * w * 4 <= build.SMEM_PER_BLOCK
+    smem = BAR_BYTES + (3 if ring else 1) * w * w * 4
+    bands = max(1, min(w, STENCIL_THREADS // w))
+    threads = -(-w * bands // 32) * 32
+    per_sm = min(build.SMEM_PER_SM // (smem + build.SMEM_RESERVED),
+                 2048 // threads, 32)
+    return LaunchConfig(ring, bands, threads, smem, per_sm,
+                        min(n, sms * per_sm))
+
+
+def route(chem: torch.Tensor) -> str:
+    """"bulk" when every lane's world is a whole number of 16-byte chunks on
+    a 16-byte boundary (W even, the field aligned), else "cp_async"."""
+    w = chem.shape[-1]
+    return "bulk" if (w * w) % 4 == 0 and chem.data_ptr() % 16 == 0 \
+        else "cp_async"
+
+
 @functools.cache
 def _launcher():
     lib = build.load("diffusion")
     fn = lib.diffuse_evaporate_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
 
@@ -47,10 +93,12 @@ def diffuse_evaporate(chem: torch.Tensor, rate: torch.Tensor,
                              f"{tuple(t.shape)} on {t.device}")
     out = torch.empty_like(chem)
     lib, fn = _launcher()
+    cfg = launch_config(n, w, build.sm_count(chem.device.index))
     with torch.cuda.device(chem.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(chem.data_ptr(), rate.data_ptr(), evap.data_ptr(),
-                 out.data_ptr(), n, w, stream)
+                 out.data_ptr(), n, w, ROUTES[route(chem)], int(cfg.ring),
+                 cfg.bands, cfg.threads, cfg.grid, stream)
     build.check(lib, err, "diffuse_evaporate launch")
     build.count_launch(diffuse_evaporate)
     return out

@@ -24,6 +24,7 @@ KERNELS = {
     "gp_sqdist": _gp.gp_sqdist,
     "gp_matrix": _gp.gp_matrix,
     "tri_solve": _cholesky.tri_solve_blocked,
+    "tri_solve_backward": _cholesky.tri_solve_blocked.backward,
     "chol_blocked": _cholesky.chol_blocked,
     "gp_chol_blocked": _cholesky.gp_chol_blocked,
     "flash_attention": _flash.flash_attention,

@@ -37,6 +37,37 @@ def test_diffusion_kernel_bitwise(cuda, n, w):
     assert torch.equal(got, ref.diffuse_evaporate_ref(chem, rate, evap))
 
 
+def _diffusion_bitwise(cuda, n, w, offset=0):
+    g = _gen(cuda, n * w + offset)
+    base = torch.rand((n * w * w + offset,), generator=g, device=cuda) * 50
+    chem = base[offset:].view(n, w, w)
+    rate = torch.rand((n,), generator=g, device=cuda)
+    evap = torch.rand((n,), generator=g, device=cuda)
+    got = diffusion.diffuse_evaporate(chem, rate, evap)
+    assert torch.equal(got, ref.diffuse_evaporate_ref(chem, rate, evap))
+    return diffusion.route(chem)
+
+
+# Lane counts just under and over one block per SM and one persistent wave
+# at the paper's world (132 SMs x 3 blocks: 396 blocks), and the chunk's
+# 20480 lanes.
+@pytest.mark.parametrize("n", [1, 131, 133, 395, 397, 640, 20480])
+def test_diffusion_kernel_bitwise_over_lane_counts(cuda, n):
+    assert _diffusion_bitwise(cuda, n, 72) == "bulk"
+
+
+# Both copy routes and both shapes of the kernel: w 33 and a field off a
+# 16-byte boundary take cp.async; up to 139 a ring of two worlds beside a
+# share buffer, from 140 one world (150, 171 and 238, the largest).
+@pytest.mark.parametrize("n,w,offset,route", [
+    (300, 8, 0, "bulk"), (300, 33, 0, "cp_async"), (20, 120, 0, "bulk"),
+    (9, 139, 0, "cp_async"), (9, 150, 0, "bulk"), (5, 171, 0, "cp_async"),
+    (140, 238, 0, "bulk"), (300, 72, 1, "cp_async"), (3, 1, 0, "cp_async"),
+    (300, 2, 0, "bulk")])
+def test_diffusion_kernel_bitwise_on_both_routes(cuda, n, w, offset, route):
+    assert _diffusion_bitwise(cuda, n, w, offset) == route
+
+
 @pytest.mark.parametrize("ni,nj,grouped", [
     (1, None, False), (37, None, False), (100, 33, True), (256, None, True),
     (333, 70, False)])
@@ -77,7 +108,8 @@ def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     ops.flash_attention_gqa_diff(q.requires_grad_(), q, q).sum().backward()
     assert ops.kernel_launch_counts() == {
         "diffuse_evaporate": 1, "dominance_pass": 1, "dominated_counts": 1,
-        "gp_sqdist": 1, "gp_matrix": 1, "tri_solve": 1, "chol_blocked": 1,
+        "gp_sqdist": 1, "gp_matrix": 1, "tri_solve": 1,
+        "tri_solve_backward": 0, "chol_blocked": 1,
         "gp_chol_blocked": 1, "flash_attention": 1, "flash_attention_fwd": 1,
         "flash_attention_dq": 1, "flash_attention_dkv": 1}
 
@@ -143,6 +175,101 @@ def test_tri_solve_kernel_matches_plain(cuda, trans, n, m):
     lt = l.T if trans else l
     resid = torch.linalg.matrix_norm(lt @ got - b) / torch.linalg.matrix_norm(b)
     assert resid.item() < 1e-5
+
+
+# The redesigned solve at the panel widths it chooses from (n_p 2048 keeps
+# its whole panel only at 16 columns a strip, n_p 4096 only part of it)
+# and the strip widths (m_p 64, 320 and 2048 take 16 columns, 50,176 the
+# widest whose panel fits), against the same gates.
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("m", [64, 320, 2048, 50176])
+@pytest.mark.parametrize("n", [64, 512, 1024, 2048])
+def test_tri_solve_kernel_matches_plain_over_strips(cuda, trans, n, m):
+    g = _gen(cuda, 7 * n + m)
+    l = _lower(n, g, cuda)
+    b = torch.randn((n, m), generator=g, device=cuda)
+    got = cholesky.tri_solve_blocked(l, b, trans=trans)
+    expect = ref.tri_solve_blocked_ref(l, b, trans=trans,
+                                       block=min(n, 256))
+    scale = expect.abs().max()
+    assert ((got - expect).abs().max() / scale).item() < 1e-4
+    lt = l.T if trans else l
+    resid = torch.linalg.matrix_norm(lt @ got - b) / torch.linalg.matrix_norm(b)
+    assert resid.item() < 1e-5
+
+
+@pytest.mark.parametrize("trans", [False, True])
+def test_tri_solve_kernel_reads_back_what_the_panel_cannot_hold(cuda, trans):
+    n, m = 4096, 128
+    assert cholesky.solve_resident(n, cholesky.solve_strip(
+        n, m, torch.cuda.get_device_properties(cuda).multi_processor_count)) \
+        < n // 64
+    g = _gen(cuda, 4096)
+    l = _lower(n, g, cuda)
+    b = torch.randn((n, m), generator=g, device=cuda)
+    got = cholesky.tri_solve_blocked(l, b, trans=trans)
+    expect = ref.tri_solve_blocked_ref(l, b, trans=trans, block=256)
+    assert ((got - expect).abs().max() / expect.abs().max()).item() < 1e-4
+    lt = l.T if trans else l
+    resid = torch.linalg.matrix_norm(lt @ got - b) / torch.linalg.matrix_norm(b)
+    assert resid.item() < 1e-5
+
+
+def test_tri_solve_kernel_from_eight_threads_at_once(cuda):
+    """Eight threads solve at once, each on a stream of its own (each call
+    packs L into scratch of its own): each result equal to the solve of the
+    same system alone."""
+    import threading
+    g = _gen(cuda, 21)
+    systems = [(_lower(512, g, cuda), torch.randn((512, 2048), generator=g,
+                                                  device=cuda), t % 2 == 1)
+               for t in range(8)]
+    alone = [cholesky.tri_solve_blocked(l, b, trans=tr)
+             for l, b, tr in systems]
+    torch.cuda.synchronize()
+    got = [None] * 8
+    start = threading.Barrier(8)
+
+    def work(t):
+        l, b, tr = systems[t]
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            start.wait()
+            got[t] = cholesky.tri_solve_blocked(l, b, trans=tr)
+        stream.synchronize()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for t in range(8):
+        assert torch.equal(got[t], alone[t]), f"thread {t}"
+
+
+def test_tri_solve_kernel_on_a_side_stream_is_ordered_there(cuda):
+    """A solve on a non-default stream, its L and B written on that stream
+    just before and its X consumed there at once, with no synchronize
+    between: both launches run on the caller's stream."""
+    g = _gen(cuda, 22)
+    l = _lower(512, g, cuda)
+    b = torch.randn((512, 50176), generator=g, device=cuda)
+    expect = cholesky.tri_solve_blocked(l, b)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.default_stream())
+    with torch.cuda.stream(stream):
+        l2 = l.clone()
+        b2 = b.clone()
+        got = cholesky.tri_solve_blocked(l2, b2).clone()
+        back = cholesky.tri_solve_blocked(l2, b2[:, :2048].contiguous(),
+                                          trans=True)
+        back_copy = back.clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, expect)
+    assert torch.equal(back_copy, cholesky.tri_solve_blocked(
+        l, b[:, :2048].contiguous(), trans=True))
 
 
 def _spd(n, g, dev):

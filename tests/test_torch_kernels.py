@@ -169,7 +169,8 @@ def test_cpu_routing_leaves_kernel_counts_alone():
     ops.flash_attention_gqa_diff(q.requires_grad_(), q, q).sum().backward()
     assert ops.kernel_launch_counts() == {
         "diffuse_evaporate": 0, "dominance_pass": 0, "dominated_counts": 0,
-        "gp_sqdist": 0, "gp_matrix": 0, "tri_solve": 0, "chol_blocked": 0,
+        "gp_sqdist": 0, "gp_matrix": 0, "tri_solve": 0,
+        "tri_solve_backward": 0, "chol_blocked": 0,
         "gp_chol_blocked": 0, "flash_attention": 0, "flash_attention_fwd": 0,
         "flash_attention_dq": 0, "flash_attention_dkv": 0}
 
@@ -290,6 +291,80 @@ def test_ops_tri_solve_pads_ragged_and_vector_rhs(trans, shape):
     np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-5)
     lt = l.T if trans else l
     np.testing.assert_allclose(lt.astype(np.float64) @ got, b, atol=1e-4)
+
+
+# The solve kernel's launch shape (csrc/trisolve.cu), chosen in Python: a
+# strip width that divides m_p, gives every SM a strip where m_p allows,
+# and keeps the whole solved panel in shared memory where it can.
+@pytest.mark.parametrize("n_p,m_p,sms,want", [
+    (512, 50176, 132, 64), (512, 2048, 132, 16), (1024, 50176, 132, 16),
+    (2048, 50176, 132, 16), (4096, 64, 132, 16), (64, 64, 132, 16),
+    (512, 320, 132, 16), (512, 8448, 132, 64), (512, 8384, 132, 16),
+    (256, 128, 2, 64), (256, 64, 2, 16), (64, 64, 1, 64)])
+def test_solve_strip_fills_the_card_and_fits(n_p, m_p, sms, want):
+    strip = cholesky.solve_strip(n_p, m_p, sms)
+    assert strip == want
+    assert m_p % strip == 0 and strip in cholesky.STRIPS
+    resident = cholesky.solve_resident(n_p, strip)
+    assert 1 <= resident <= n_p // 64
+    assert cholesky.solve_smem_bytes(strip, resident) <= build.SMEM_PER_BLOCK
+    if m_p // 16 >= sms:        # m_p allows one strip per SM
+        assert m_p // strip >= sms
+    if strip != 16:             # a wider strip only with the whole panel
+        assert resident == n_p // 64
+    # the widest strip that meets both: no wider one would
+    for wider in cholesky.STRIPS[:cholesky.STRIPS.index(strip)]:
+        assert m_p // wider < sms \
+            or cholesky.solve_resident(n_p, wider) < n_p // 64
+
+
+@pytest.mark.parametrize("n_p,resident", [(64, 1), (512, 8), (2048, 32),
+                                          (4096, 42), (65536, 42)])
+def test_solve_resident_holds_what_fits(n_p, resident):
+    assert cholesky.solve_resident(n_p, 16) == resident
+    assert cholesky.pack_tiles(n_p) == (n_p // 64) * (n_p // 64 + 1) // 2
+
+
+# The diffusion kernel's persistent launch (csrc/diffusion.cu), chosen in
+# Python from the world's size and the SM count.
+@pytest.mark.parametrize("n,w,sms,ring,per_sm,grid", [
+    (20480, 72, 132, True, 3, 396), (640, 72, 132, True, 3, 396),
+    (131, 72, 132, True, 3, 131), (1, 72, 132, True, 3, 1),
+    (7, 33, 132, True, 7, 7), (5000, 33, 132, True, 7, 924),
+    (3, 120, 132, True, 1, 3), (500, 139, 132, True, 1, 132),
+    (500, 140, 132, False, 2, 264), (500, 238, 132, False, 1, 132),
+    (9000, 8, 132, True, 32, 4224), (20480, 72, 114, True, 3, 342)])
+def test_diffusion_launch_config(n, w, sms, ring, per_sm, grid):
+    cfg = diffusion.launch_config(n, w, sms)
+    assert (cfg.ring, cfg.blocks_per_sm, cfg.grid) == (ring, per_sm, grid)
+    assert cfg.grid == min(n, sms * cfg.blocks_per_sm)
+    assert cfg.smem_bytes == diffusion.BAR_BYTES \
+        + (3 if cfg.ring else 1) * w * w * 4
+    assert cfg.smem_bytes <= build.SMEM_PER_BLOCK
+    assert cfg.blocks_per_sm * (cfg.smem_bytes + build.SMEM_RESERVED) \
+        <= build.SMEM_PER_SM
+    assert cfg.threads % 32 == 0 and w * cfg.bands <= cfg.threads <= 512
+    assert 1 <= cfg.bands <= w
+    # one world only where two and a share buffer do not fit
+    assert cfg.ring == (diffusion.BAR_BYTES + 3 * w * w * 4
+                        <= build.SMEM_PER_BLOCK)
+
+
+def test_diffusion_launch_config_refuses_worlds_it_cannot_hold():
+    with pytest.raises(ValueError, match="world"):
+        diffusion.launch_config(4, diffusion.MAX_WORLD + 1, 132)
+
+
+@pytest.mark.parametrize("w,offset,want", [
+    (72, 0, "bulk"), (8, 0, "bulk"), (2, 0, "bulk"), (238, 0, "bulk"),
+    (33, 0, "cp_async"), (1, 0, "cp_async"), (72, 1, "cp_async"),
+    (72, 4, "bulk")])
+def test_diffusion_route(w, offset, want):
+    """Bulk copies need each lane's world a whole number of 16-byte chunks
+    and the field on a 16-byte boundary; anything else takes cp.async."""
+    base = torch.zeros(2 * w * w + offset + 4)
+    chem = base[offset:offset + 2 * w * w].view(2, w, w)
+    assert diffusion.route(chem) == want
 
 
 def test_tri_solve_refuses_a_block_that_is_not_64_times_a_power_of_two():
@@ -570,3 +645,56 @@ def test_chol_build_report_names_every_kernel():
     with pytest.raises(RuntimeError, match="unknown kernel chol_diag_kernel"):
         smoke.chol_build_report(_fake_chol_build(
             (*smoke.CHOL_KERNELS, "chol_diag_kernel")))
+
+
+def _fake_stencil_solve_build(diffusion_kernels, trisolve_kernels):
+    """A stand-in for ``build`` whose diffusion and trisolve libraries hold
+    the given kernels, mangled as nvcc names them in each file's anonymous
+    namespace."""
+    import types
+    logs = {}
+    for source, kernels in (("diffusion", diffusion_kernels),
+                            ("trisolve", trisolve_kernels)):
+        logs[source] = "\n".join(
+            f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'\nptxas info    : Function properties for {name}\n"
+            f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+            f"loads\nptxas info    : Used {40 + i} registers, used 1 barriers"
+            for i, name in enumerate(kernels))
+    return types.SimpleNamespace(build_log=lambda name: logs[name],
+                                 kernel_resources=build.kernel_resources)
+
+
+_DIFFUSION_MANGLED = [
+    f"_ZN45_GLOBAL__N__945978c1_12_diffusion_cu_bdf1c8cd24diffuse_evaporate"
+    f"_kernelILb{b}ELb{ring}EEEvPKfS2_S2_Pfiii"
+    for b in (0, 1) for ring in (0, 1)]
+_TRISOLVE_MANGLED = [
+    "_ZN44_GLOBAL__N__d5c9e1b0_11_trisolve_cu_183ee35720trisolve_pack_kernel"
+    "EPKfiiPf"] + [
+    f"_ZN44_GLOBAL__N__d5c9e1b0_11_trisolve_cu_183ee35715trisolve_kernelILi"
+    f"{w}EEEvPKfS2_iiiiPf" for w in (16, 64)]
+
+
+def test_stencil_solve_build_report_names_every_kernel():
+    """chip_smoke's build line for diffusion.cu and trisolve.cu: each
+    instantiation with registers and spills; a missing or unknown kernel
+    fails the phase."""
+    smoke = _chip_smoke()
+    rows = smoke.stencil_solve_build_report(_fake_stencil_solve_build(
+        _DIFFUSION_MANGLED, _TRISOLVE_MANGLED))
+    assert len(rows) == 7
+    assert rows["diffuse_evaporate_kernel<bulk,ring>"] == {
+        "registers": 43, "spill_stores": 0, "spill_loads": 0}
+    assert rows["diffuse_evaporate_kernel<cp_async,one>"][
+        "registers"] == 40
+    assert rows["trisolve_kernel<64>"]["registers"] == 42
+    assert "trisolve_pack_kernel" in rows
+    with pytest.raises(RuntimeError, match="expected"):
+        smoke.stencil_solve_build_report(_fake_stencil_solve_build(
+            _DIFFUSION_MANGLED[:-1], _TRISOLVE_MANGLED))
+    with pytest.raises(RuntimeError, match="unknown kernel"):
+        smoke.stencil_solve_build_report(_fake_stencil_solve_build(
+            _DIFFUSION_MANGLED, _TRISOLVE_MANGLED + [
+                "_ZN44_GLOBAL__N__d5c9e1b0_11_trisolve_cu_183ee35715"
+                "trisolve_diag_inv_kernelEPKfiPf"]))

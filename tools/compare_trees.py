@@ -1,0 +1,130 @@
+"""Time the port's per-tick diffusion kernel (B1), its triangular solve
+(B7) and one chunk of the streaming init in two checkouts of the repo on
+one CUDA card, in turns: A, B, B, A, each run in a process of its own
+(each builds its own kernels), so that a change is read against its parent
+on the same card within one call.
+
+    python3 tools/compare_trees.py PARENT_DIR CHANGED_DIR [--chunk]
+
+Each run prints one JSON line: B1 at (640, 72, 72) and (20480, 72, 72),
+B7 forward at L 512, B (512, 50,176) and backward at B (512, 2048), each
+checked against its plain version (B1 bitwise; B7 within 1e-4 of max |X|)
+and timed with CUDA events (median, min and max of 20 samples of 10
+back-to-back calls each, queued behind a spinning card); with --chunk also
+one 20480-lane init chunk at CONFIG (lane-ticks per second). The card's
+name and power limit come last.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+
+def events_ms(torch, fn, reps: int = 20, inner: int = 10) -> dict:
+    """Median, min and max ms per call over ``reps`` samples of ``inner``
+    back-to-back calls between two CUDA events, after a warm-up. Before
+    each sample the card spins ~1 ms (torch.cuda._sleep) while the host
+    queues the sample's calls, so that the events read the card's time
+    and not the host's launch cost."""
+    for _ in range(2):
+        fn()
+    samples = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / inner)
+    return {"median": statistics.median(samples), "min": min(samples),
+            "max": max(samples)}
+
+
+def worker(chunk: bool) -> dict:
+    """Measure the kernels (and the chunk) of the tree on sys.path."""
+    import time
+
+    import torch
+
+    from repro_torch.kernels import build, cholesky, diffusion, ops, ref
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.monotonic()
+    build.build(["diffusion", "trisolve"])
+    out = {"build_s": time.monotonic() - t0}
+    for n in (640, 20480):
+        chem = torch.rand((n, 72, 72), generator=gen, device=dev) * 100.0
+        rate = torch.rand((n,), generator=gen, device=dev)
+        evap = torch.rand((n,), generator=gen, device=dev) * 0.5
+        got = diffusion.diffuse_evaporate(chem, rate, evap)
+        if not torch.equal(got, ref.diffuse_evaporate_ref(chem, rate, evap)):
+            raise RuntimeError(f"diffuse_evaporate not bitwise at {n}")
+        out[f"b1_{n}_ms"] = events_ms(
+            torch, lambda: diffusion.diffuse_evaporate(chem, rate, evap))
+    for n, m, trans in ((512, 50176, False), (512, 2048, True)):
+        a = torch.randn((n, n), generator=gen, device=dev)
+        l = torch.linalg.cholesky(a @ a.T / n
+                                  + torch.eye(n, device=dev)).contiguous()
+        b = torch.randn((n, m), generator=gen, device=dev)
+        got = cholesky.tri_solve_blocked(l, b, trans=trans)
+        want = ref.tri_solve_blocked_ref(l, b, trans=trans,
+                                         block=ops.CHOL_BLOCK)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not rel < 1e-4:
+            raise RuntimeError(f"tri_solve trans={trans}: rel err {rel}")
+        out[f"b7_{'bwd' if trans else 'fwd'}_{m}_ms"] = events_ms(
+            torch, lambda: cholesky.tri_solve_blocked(l, b, trans=trans))
+    if chunk:
+        from repro_torch.configs.ants_netlogo import CONFIG
+        from repro_torch.launch import explore
+        genomes = torch.rand((4096, 2), generator=gen, device=dev) * 99
+        eval_fn = explore.ants_eval_fn(CONFIG, 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_fn(gen, genomes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out["chunk_s"] = wall
+        out["chunk_lane_ticks_per_s"] = 4096 * 5 * CONFIG.max_ticks / wall
+    return out
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        sys.path.insert(0, str(Path(sys.argv[2]) / "src"))
+        print(json.dumps(worker("--chunk" in sys.argv)), flush=True)
+        return 0
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    if len(args) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    extra = ["--chunk"] if "--chunk" in sys.argv else []
+    trees = {"A": Path(args[0]).resolve(), "B": Path(args[1]).resolve()}
+    for label in ("A", "B", "B", "A"):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        run = subprocess.run(
+            [sys.executable, __file__, "--worker", str(trees[label]), *extra],
+            capture_output=True, text=True, env=env, timeout=600)
+        if run.returncode != 0:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            return 1
+        row = json.loads(run.stdout.strip().splitlines()[-1])
+        print(json.dumps({"tree": label, "dir": str(trees[label]), **row}),
+              flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

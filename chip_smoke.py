@@ -18,7 +18,9 @@ Phases (any failure exits non-zero):
               shared memory), which must be exactly the expected four; a
               fourth the registers and spills of diffusion.cu's and
               trisolve.cu's kernels, which must be exactly the expected
-              seven.
+              seven; a fifth the registers, spills, static shared memory
+              and SASS opcode counts (DOMINANCE_OPCODES) of dominance.cu's
+              kernels, which must be exactly the expected 29.
   2. kernels  each kernel against its plain version at the main paths'
               shapes, dominance also with the +BIG rows that ranking
               writes for empty slots (diffusion and the GP assembly
@@ -49,7 +51,16 @@ Phases (any failure exits non-zero):
               stencil; for the solve its two kernels, the pack kernel with
               the diagonal tiles' inverses and the solve, by kernel), and
               the stencil once more on its cp.async route (a world of odd
-              width; a field off a 16-byte boundary).
+              width; a field off a 16-byte boundary). B2 and B3 have no
+              library call: "ms" is the median of 20 queued samples of 10
+              calls, beside the profiler's time, the bound and the issue
+              floor (the pairs over the rate of B2's inner loop alone, from
+              dominance.issue_probe, which also runs the same pairs as float
+              compares); then the section 4.5 sorting benchmark's ranking
+              (8192 x 3 uniform): the fused ranking and the peeling
+              baseline, ranks equal, ms a ranking, the kernel's share,
+              fronts, launch counts read around one of each (the
+              "ranking" path of the kernels line).
   3. parity   simulate_batch on the card against the CPU plain path, same
               Gumbel noise, REDUCED config: first-empty ticks equal; and
               gp_fit on the card against the CPU plain path at n = 80.
@@ -159,7 +170,8 @@ def turns_ms(torch, kernel, library, reps: int = 10, inner: int = 3,
     """``kernel`` and its ``library`` yardstick timed in turns (kernel,
     library, library, kernel) ``reps`` times, each sample ``inner``
     back-to-back calls between two CUDA events: -> ({"median", "min",
-    "max", "n"} ms per call of the kernel, the same of the library).
+    "max", "n"} ms per call of the kernel, the same of the library, or
+    None where ``library`` is None and the kernel is sampled alone).
     With ``hold_cycles``, the card spins that many cycles
     (torch.cuda._sleep) before each sample, while the host queues the
     sample's calls behind it: the events then read the card's time for
@@ -180,14 +192,18 @@ def turns_ms(torch, kernel, library, reps: int = 10, inner: int = 3,
     lib_inner = inner if library_inner is None else library_inner
     for _ in range(warmup):
         kernel()
-        library()
+        if library is not None:
+            library()
     ks, ls = [], []
     for _ in range(reps):
         ks.append(sample(kernel, inner))
-        ls.extend((sample(library, lib_inner), sample(library, lib_inner)))
+        if library is not None:
+            ls.extend((sample(library, lib_inner),
+                       sample(library, lib_inner)))
         ks.append(sample(kernel, inner))
     return tuple({"median": statistics.median(x), "min": min(x),
-                  "max": max(x), "n": len(x)} for x in (ks, ls))
+                  "max": max(x), "n": len(x)} if x else None
+                 for x in (ks, ls))
 
 
 HOLD_CYCLES = 2_000_000     # ~1 ms of a spinning card: the host queues a
@@ -333,6 +349,41 @@ def stencil_solve_build_report(build) -> dict:
             rows[name] = res
     require(set(rows) == want, f"diffusion.cu / trisolve.cu kernels: "
             f"expected {sorted(want)}, got {sorted(rows)}")
+    return rows
+
+
+DOMINANCE_OPCODES = ("FADD", "FSETP", "LOP3", "SHF", "IADD3", "IMAD", "LDS",
+                     "POPC", "STG", "BRA")
+
+
+def dominance_build_report(build) -> dict:
+    """Every kernel of dominance.cu: dominance_kernel<M,groups,bitmap> for
+    M = 1..8 and the generic M (0), grouped and ungrouped with the bitmap
+    (B2) and ungrouped counts alone (B3), and the issue probe in both
+    forms; with registers, spills and static shared memory (ptxas -v) and
+    the count of each of DOMINANCE_OPCODES in its SASS. Fails unless the
+    kernels are exactly the expected ones."""
+    import re
+    want = {f"dominance_kernel<{m},{g},{b}>" for m in range(9)
+            for g, b in ((0, 1), (1, 1), (0, 0))}
+    want |= {"dominance_probe_kernel<subtract>",
+             "dominance_probe_kernel<compare>"}
+    counts = build.sass_counts(build.sass("dominance"), DOMINANCE_OPCODES)
+    rows = {}
+    for mangled, res in build.kernel_resources(
+            build.build_log("dominance")).items():
+        if (m := re.search(r"dominance_kernelILi(\d+)ELb([01])ELb([01])E",
+                           mangled)):
+            name = f"dominance_kernel<{m.group(1)},{m.group(2)},{m.group(3)}>"
+        elif (m := re.search(r"dominance_probe_kernelILb([01])E", mangled)):
+            name = ("dominance_probe_kernel<"
+                    f"{'subtract' if m.group(1) == '1' else 'compare'}>")
+        else:
+            name = mangled
+        require(name in want, f"unknown kernel {name} in dominance.cu")
+        rows[name] = {**res, **counts.get(mangled, {})}
+    require(set(rows) == want, f"dominance.cu kernels: expected "
+            f"{sorted(want)}, got {sorted(rows)}")
     return rows
 
 
@@ -765,6 +816,8 @@ def main() -> int:
     emit({"phase": "build", "cholesky_kernels": chol_build_report(build)})
     emit({"phase": "build",
           "stencil_solve_kernels": stencil_solve_build_report(build)})
+    emit({"phase": "build",
+          "dominance_kernels": dominance_build_report(build)})
 
     # -- 2. kernels against their plain versions ----------------------------
     def field(n, w=72):
@@ -842,10 +895,37 @@ def main() -> int:
         return torch.randint(0, 1001, (n, 3), generator=gen,
                              device=dev).to(torch.float32)
 
+    # the issue floor of the sweep: B2's inner loop from registers and
+    # shared memory alone, and the same pairs as float compares
+    probe = {"subtract": dominance.issue_probe(True),
+             "compare": dominance.issue_probe(False)}
+    emit({"phase": "kernels", "probe": "dominance_issue", **probe})
+    pair_rate = probe["subtract"]["pairs_per_s"]
+
+    def dominance_timing(run, plain, n, pairs, n_bytes):
+        """B2/B3 beside their bounds: queued CUDA-event samples (no library
+        call to take turns with), the profiler's kernel time, the
+        host-paced call time and the plain version's."""
+        b_ms, b_by = bound_ms(n_bytes, pairs * 2 * 3)
+        kt, _ = turns_ms(torch, run, None, inner=10, hold_cycles=HOLD_CYCLES)
+        return {"equal": True, "max_abs_err": 0.0,
+                "probe_sm_clock_ghz": probe["subtract"]["sm_clock_ghz"],
+                "launch": dataclasses.asdict(
+                    dominance.launch_config(n, n, 3, sms)),
+                "timed_by": "cuda_events_queued", "ms": kt["median"],
+                "ms_min_max": [kt["min"], kt["max"]], "samples": kt["n"],
+                "profiler_ms": device_ms(torch, run),
+                "call_ms": call_ms(torch, run),
+                "plain_ms": device_ms(torch, plain, reps=5),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_share": b_ms / kt["median"], "pairs": pairs,
+                "issue_floor_ms": pairs / pair_rate * 1e3}
+
     # (rows, grouped, rows set to +BIG, those rows first): the GA pool ranks
     # 8 islands x 32 grouped; pareto_front ranks the 256-row archive with
     # its empty rows at +BIG; the first merge ranks the 256 empty archive
-    # rows ahead of 64 new ones
+    # rows ahead of 64 new ones; 2048 and 8192 rows are the streaming
+    # init's blocks and the section 4.5 sorting benchmark
     for n, grouped, n_big, big_first in (
             (256, True, 0, False), (128, True, 0, False),
             (256, False, 128, False), (320, False, 0, False),
@@ -864,35 +944,68 @@ def main() -> int:
                 f"dominance_pass equal at n={n} grouped={grouped} "
                 f"big={n_big}")
         words = -(-n // 32)
-        b_ms, b_by = bound_ms(
-            2 * n * 3 * 4 + (2 * n * 4 if grouped else 0) + n * 4
-            + n * words * 4, n * n * 2 * 3)
+        # block (0, 0)'s SM clocks at each phase, the latest warp's
+        phases = dominance.pass_phase_cycles(rows, groups)
         r = {"kernel": "dominance_pass", "shape": [n, 3], "grouped": grouped,
-             "big_rows": n_big, "equal": True, "max_abs_err": 0.0,
-             "ms": device_ms(torch, lambda: dominance.dominance_pass(
-                 rows, groups=groups)),
-             "call_ms": call_ms(torch, lambda: dominance.dominance_pass(
-                 rows, groups=groups)),
-             "plain_ms": device_ms(torch, lambda: ref.dominance_pass_ref(
-                 rows, groups=groups), reps=5),
-             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+             "big_rows": n_big,
+             "phase_cycles": {k: max(phases[k]) for k in dominance.PHASES},
+             "pass0_computed_by_warp": phases["pass0_computed"],
+             "blocks": phases["blocks"],
+             **dominance_timing(
+                 lambda: dominance.dominance_pass(rows, groups=groups),
+                 lambda: ref.dominance_pass_ref(rows, groups=groups), n,
+                 (n // 8) ** 2 * 8 if grouped else n * n,
+                 2 * n * 3 * 4 + (2 * n * 4 if grouped else 0) + n * 4
+                 + n * words * 4)}
         results[("dominance_pass", n, grouped, n_big)] = r
         emit({"phase": "kernels", **r})
 
-    rows = objectives(2048)
-    got = dominance.dominated_counts(rows)
-    require(torch.equal(got, ref.dominated_counts_ref(rows)),
-            "dominated_counts equal at n=2048")
-    b_ms, b_by = bound_ms(2048 * 3 * 4 + 2048 * 4, 2048 * 2048 * 2 * 3)
-    r = {"kernel": "dominated_counts", "shape": [2048, 3], "equal": True,
-         "max_abs_err": 0.0,
-         "ms": device_ms(torch, lambda: dominance.dominated_counts(rows)),
-         "call_ms": call_ms(torch, lambda: dominance.dominated_counts(rows)),
-         "plain_ms": device_ms(torch, lambda: ref.dominated_counts_ref(rows),
-                               reps=5),
-         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    results[("dominated_counts", 2048)] = r
-    emit({"phase": "kernels", **r})
+    for n in (2048, 8192):
+        rows = objectives(n)
+        got = dominance.dominated_counts(rows)
+        require(torch.equal(got, ref.dominated_counts_ref(rows)),
+                f"dominated_counts equal at n={n}")
+        r = {"kernel": "dominated_counts", "shape": [n, 3],
+             **dominance_timing(
+                 lambda: dominance.dominated_counts(rows),
+                 lambda: ref.dominated_counts_ref(rows), n, n * n,
+                 n * 3 * 4 + n * 4)}
+        results[("dominated_counts", n)] = r
+        emit({"phase": "kernels", **r})
+
+    # the section 4.5 sorting benchmark's input (benchmarks/run.py
+    # bench_nsga2_dominance): 8192 x 3 uniform objectives; the fused
+    # ranking (one B2 sweep, then popcount peeling) against the peeling
+    # baseline (one B3 sweep a front); launch counts read around one of each
+    f = torch.rand((8192, 3), generator=torch.Generator(dev).manual_seed(0),
+                   device=dev)
+    ops.reset_kernel_launch_counts()
+    fused = nsga2.nondominated_ranks(f)
+    peel = nsga2.nondominated_ranks_peel(f)
+    torch.cuda.synchronize()
+    rank_launches = ops.kernel_launch_counts()
+    fronts = int(fused.max().item()) + 1
+    require(torch.equal(fused, peel), "section 4.5 ranking: fused and "
+            "peeling ranks differ")
+    require(rank_launches["dominance_pass"] == 1
+            and rank_launches["dominated_counts"] == fronts,
+            f"section 4.5 ranking launches {rank_launches}")
+    ranking = {}
+    for name, fn in (("fused", lambda: nsga2.nondominated_ranks(f)),
+                     ("peel", lambda: nsga2.nondominated_ranks_peel(f))):
+        ms = call_ms(torch, fn, reps=5, inner=1, warmup=1)
+        wall, _, by_kernel, intervals = profiled(torch, fn)
+        busy = busy_union_ms(intervals)
+        kernel = by_kernel.get("dominance_kernel", 0.0)
+        ranking[name] = {"ms": ms, "dominance_kernel_ms": kernel,
+                         "kernel_share": kernel / ms,
+                         "profiled_wall_ms": wall, "device_busy_ms": busy,
+                         "idle_share": max(0.0, 1.0 - busy / wall),
+                         "kernel_breakdown": kernel_breakdown(intervals)}
+    emit({"phase": "kernels", "ranking": "section_4_5", "shape": [8192, 3],
+          "objectives": "uniform [0, 1), torch.Generator seed 0",
+          "fronts": fronts, "equal_ranks": True,
+          "launches": rank_launches, **ranking})
 
     # B4: the surrogate's distance assembly (the default run's two GP fits
     # at 16 and 24 points and its largest history, select_lengthscale's
@@ -1531,7 +1644,8 @@ def main() -> int:
     # -- 10. the kernels line, the card, the contract line -------------------
     # (kernel, result key, source, TPU kernel, the path whose run gives the
     # launches); every path's counts are listed beside it
-    by_path = {"calibrate": cal_launches, "surrogate": sur_launches,
+    by_path = {"ranking": rank_launches,
+               "calibrate": cal_launches, "surrogate": sur_launches,
                "surrogate_big": big_launches, "gp_chol": gp_launches,
                "flash": flash_launches}
     rows = (
@@ -1539,8 +1653,9 @@ def main() -> int:
          "src/repro/kernels/diffusion.py:89", "calibrate"),
         ("dominance_pass", ("dominance_pass", 256, True, 0), "dominance.cu",
          "src/repro/kernels/dominance.py:154", "calibrate"),
-        ("dominated_counts", ("dominated_counts", 2048), "dominance.cu",
-         "src/repro/kernels/dominance.py:101", "calibrate"),
+        # B3: the section 4.5 peeling baseline, one sweep a front
+        ("dominated_counts", ("dominated_counts", 8192), "dominance.cu",
+         "src/repro/kernels/dominance.py:101", "ranking"),
         ("gp_sqdist", ("gp_sqdist", "sqdist", 512, 50000), "gp.cu",
          "src/repro/kernels/gp.py:93", "surrogate_big"),
         # gp_matrix: the gp_chol path's unfused sweep assembles with it

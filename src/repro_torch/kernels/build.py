@@ -123,8 +123,9 @@ def build_log(name: str) -> str:
 
 
 def kernel_resources(log: str) -> Dict[str, dict]:
-    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
-    from ptxas's -v report (``build_log``)."""
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    and "static_smem_bytes" where the kernel declares shared memory}} from
+    ptxas's -v report (``build_log``)."""
     out: Dict[str, dict] = {}
     name = None
     for line in log.splitlines():
@@ -142,6 +143,9 @@ def kernel_resources(log: str) -> Dict[str, dict]:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            out[name]["static_smem_bytes"] = int(m.group(1))
     return out
 
 

@@ -68,24 +68,89 @@ def test_diffusion_kernel_bitwise_on_both_routes(cuda, n, w, offset, route):
     assert _diffusion_bitwise(cuda, n, w, offset) == route
 
 
-@pytest.mark.parametrize("ni,nj,grouped", [
-    (1, None, False), (37, None, False), (100, 33, True), (256, None, True),
-    (333, 70, False)])
-def test_dominance_kernel_equal(cuda, ni, nj, grouped):
-    g = _gen(cuda, ni)
-    rows = torch.randint(0, 6, (ni, 3), generator=g, device=cuda).float()
-    cols = None if nj is None else torch.randint(
-        0, 6, (nj, 3), generator=g, device=cuda).float()
-    n_cols = ni if nj is None else nj
-    gi = torch.randint(0, 3, (ni,), generator=g, device=cuda,
-                       dtype=torch.int32) if grouped else None
-    gj = torch.randint(0, 3, (n_cols,), generator=g, device=cuda,
-                       dtype=torch.int32) if grouped and nj else None
+# IEEE's special values beside small integers: -0 beside +0, NaN, +-inf,
+# the +BIG of masked rows, the largest finite floats and denormals
+_SPECIAL = (0.0, -0.0, float("nan"), float("inf"), float("-inf"), 1.0e30,
+            3.4e38, -3.4e38, 1e-45, -1e-45)
+
+# (Ni, Nj or None for the square sweep, M, values, groups, +BIG rows): every
+# M of the unrolled kernels and the generic one (9); column counts around
+# one word; groups sorted, unsorted, on one side only, and in ranges that
+# straddle the 128-row tiles and 32-column words; +BIG rows first and
+# scattered; the shapes of the GA ranking and of the streaming init's and
+# the section 4.5 benchmark's sweeps
+_DOM_CASES = {
+    "1": (1, None, 3, "ints", None, None),
+    "37": (37, None, 3, "ints", None, None),
+    "100x33-grouped": (100, 33, 3, "ints", "unsorted", None),
+    "256-grouped": (256, None, 3, "ints", "sorted", None),
+    "333x70": (333, 70, 3, "ints", None, None),
+    **{f"m{m}": (150, None, m, "ints", None, None) for m in range(1, 10)},
+    "m9-special-grouped": (140, 90, 9, "special", "unsorted", None),
+    **{f"nj{nj}": (200, nj, 3, "ints", None, None) for nj in (1, 31, 32, 33)},
+    "40x300-m4": (40, 300, 4, "ints", None, None),
+    "groups-rows-only": (130, 90, 3, "ints", "rows", None),
+    "groups-cols-only": (130, 90, 3, "ints", "cols", None),
+    "groups-straddle": (300, None, 3, "ints", "straddle", None),
+    "groups-straddle-rect": (300, 290, 2, "ints", "straddle", None),
+    "big-first": (320, None, 3, "ints", None, "first"),
+    "big-scattered": (256, None, 3, "ints", None, "scattered"),
+    "special": (300, None, 3, "special", None, None),
+    "special-rect-m8": (129, 260, 8, "special", None, None),
+    "special-grouped-m5": (200, None, 5, "special", "unsorted", "scattered"),
+    "2048": (2048, None, 3, "ints", None, None),
+    "2048-grouped": (2048, None, 3, "ints", "sorted", "scattered"),
+    "8192": (8192, None, 3, "uniform", None, None),
+    "8192-special": (8192, None, 3, "special", None, "scattered"),
+    "50000x64": (50000, 64, 2, "ints", None, None),
+}
+
+
+def _dom_values(g, n, m, values, cuda):
+    if values == "uniform":
+        return torch.rand((n, m), generator=g, device=cuda)
+    x = torch.randint(0, 4, (n, m), generator=g, device=cuda).float()
+    if values == "special":
+        special = torch.tensor(_SPECIAL, device=cuda)
+        pick = torch.randint(0, len(_SPECIAL), (n, m), generator=g,
+                             device=cuda)
+        x = torch.where(torch.rand((n, m), generator=g, device=cuda) < 0.1,
+                        special[pick], x)
+    return x
+
+
+def _dom_groups(g, n, kind, side, cuda):
+    if kind == "sorted":
+        return (torch.arange(n, device=cuda, dtype=torch.int32) * 8 // n)
+    if kind == "unsorted" or kind == side:
+        return torch.randint(-1, 3, (n,), generator=g, device=cuda,
+                             dtype=torch.int32)
+    if kind == "straddle":   # ranges of 50 / 45: across tiles and words
+        return torch.arange(n, device=cuda, dtype=torch.int32) // (
+            50 if side == "rows" else 45)
+    return None
+
+
+@pytest.mark.parametrize("case", list(_DOM_CASES))
+def test_dominance_kernel_equal(cuda, case):
+    """B2 (counts and bitmap) and, on every square ungrouped shape, B3
+    equal to their plain versions."""
+    ni, nj, m, values, groups, big = _DOM_CASES[case]
+    g = _gen(cuda, ni * 31 + m)
+    rows = _dom_values(g, ni, m, values, cuda)
+    if big == "first":
+        rows[:ni * 4 // 5] = 1.0e30
+    elif big == "scattered":
+        rows[torch.randperm(ni, generator=g, device=cuda)[:ni // 3]] = 1.0e30
+    cols = None if nj is None else _dom_values(g, nj, m, values, cuda)
+    gi = _dom_groups(g, ni, groups, "rows", cuda)
+    gj = None if nj is None else _dom_groups(g, nj, groups, "cols", cuda)
     got = dominance.dominance_pass(rows, cols, gi, gj)
     expect = ref.dominance_pass_ref(rows, cols, gi, gj)
     assert torch.equal(got[0], expect[0]) and torch.equal(got[1], expect[1])
-    assert torch.equal(dominance.dominated_counts(rows),
-                       ref.dominated_counts_ref(rows))
+    if nj is None and groups is None:
+        assert torch.equal(dominance.dominated_counts(rows),
+                           ref.dominated_counts_ref(rows))
 
 
 def test_ops_route_cuda_tensors_to_the_kernels(cuda):

@@ -75,9 +75,15 @@ def test_neighbor_counts():
 # ---------------------------------------------------------------------------
 # dominance
 # ---------------------------------------------------------------------------
-def _objectives(rng, n, m, levels=5):
-    # few distinct levels: many ties and duplicate rows
-    return rng.integers(0, levels, (n, m)).astype(np.float32)
+def _objectives(rng, n, m, levels=5, special=False):
+    # few distinct levels: many ties and duplicate rows; ``special`` puts
+    # -0.0, NaN and +-inf in a tenth of the entries
+    x = rng.integers(0, levels, (n, m)).astype(np.float32)
+    if special:
+        values = np.array([-0.0, 0.0, np.nan, np.inf, -np.inf], np.float32)
+        at = rng.random((n, m)) < 0.1
+        x[at] = rng.choice(values, at.sum())
+    return x
 
 
 DOM_CASES = {
@@ -87,6 +93,10 @@ DOM_CASES = {
     "grouped": dict(ni=101, nj=None, m=3, groups=True, masked=0),
     "grouped-rect": dict(ni=40, nj=33, m=4, groups=True, masked=0),
     "masked": dict(ni=50, nj=None, m=3, groups=True, masked=9),
+    "special": dict(ni=70, nj=None, m=3, groups=False, masked=5,
+                    special=True),
+    "special-m8": dict(ni=45, nj=66, m=8, groups=True, masked=0,
+                       special=True, levels=3),
 }
 
 
@@ -94,9 +104,11 @@ DOM_CASES = {
 def test_dominance_pass_matches_pallas(case):
     c = DOM_CASES[case]
     rng = np.random.default_rng(len(case))
-    rows = _objectives(rng, c["ni"], c["m"])
+    kw = dict(levels=c.get("levels", 5), special=c.get("special", False))
+    rows = _objectives(rng, c["ni"], c["m"], **kw)
     rows[:c["masked"]] = 1.0e30          # masked lanes, as nsga2 writes them
-    cols = None if c["nj"] is None else _objectives(rng, c["nj"], c["m"])
+    cols = None if c["nj"] is None else _objectives(rng, c["nj"], c["m"],
+                                                    **kw)
     nj = c["ni"] if cols is None else c["nj"]
     gi = rng.integers(0, 3, c["ni"]).astype(np.int32) if c["groups"] else None
     gj = (rng.integers(0, 3, nj).astype(np.int32)
@@ -118,6 +130,101 @@ def test_dominated_counts_matches_pallas(n, m):
                                        interpret=True))
     np.testing.assert_array_equal(ops.dominated_counts(_t(f)).numpy(),
                                   expect)
+
+
+def test_special_cases_hold_ieee_compares():
+    """-0.0 equals +0.0, NaN neither dominates nor is dominated, +-inf
+    compare as IEEE says (the semantics the CUDA kernels' keys keep)."""
+    nan, inf = float("nan"), float("inf")
+    rows = torch.tensor([[0.0, 1.0], [-0.0, 1.0], [nan, 0.0], [-inf, 2.0],
+                         [inf, inf], [inf, 5.0]])
+    counts, bitmap = ops.dominance_pass(rows)
+    # row 3 (-inf, 2) dominates none of rows 0/1 (2 > 1); rows 0..1 and 3
+    # dominate (inf, inf) and (inf, 5); (inf, 5) dominates (inf, inf)
+    assert counts.tolist() == [0, 0, 0, 0, 4, 3]
+    assert bitmap[:, 0].tolist() == [0, 0, 0, 0, 0b101011, 0b001011]
+
+
+@pytest.mark.parametrize("ni,nj", [
+    (1, 1), (256, 256), (2048, 2048), (8192, 8192), (50000, 50000),
+    (100, 33), (40, 300), (320, 320), (129, 2048), (50000, 64), (20, 0)])
+def test_dominance_launch_config_covers_each_row_word_once(ni, nj):
+    """Every (row, word) pair falls in exactly one block: row tiles of
+    TILE_ROWS cover the rows once, splits of whole passes cover the words
+    once, none empty; the grid within CUDA's limits for 132 SMs."""
+    cfg = dominance.launch_config(ni, nj, 3, 132)
+    words = -(-nj // 32)
+    assert cfg.words == words and cfg.threads == dominance.THREADS
+    assert 1 <= cfg.grid[0] <= 2**31 - 1 and 1 <= cfg.grid[1] <= 65535
+    rows = np.zeros(ni, int)
+    for x in range(cfg.grid[0]):
+        rows[x * dominance.TILE_ROWS:(x + 1) * dominance.TILE_ROWS] += 1
+    assert (rows == 1).all() and (cfg.grid[0] - 1) * dominance.TILE_ROWS < ni
+    assert cfg.split_words % dominance.PASS_WORDS == 0
+    covered = np.zeros(words, int)
+    for y in range(cfg.splits):
+        span = covered[y * cfg.split_words:(y + 1) * cfg.split_words]
+        assert span.size > 0 or words == 0     # no empty split
+        span += 1
+    assert (covered == 1).all()
+    assert cfg.col_stride == 4
+
+
+def test_dominance_launch_config_fills_the_card():
+    """The splits put about two blocks on each of the SMs where the rows
+    alone do not, and one split where they do or where the columns are
+    one pass; M past 8 takes the generic kernel (no staging)."""
+    lc = dominance.launch_config
+    assert lc(8192, 8192, 3, 132).splits == 4      # 64 tiles x 4
+    assert lc(2048, 2048, 3, 132).splits == 8      # 16 tiles x 8
+    assert lc(256, 256, 3, 132).splits == 1        # one pass of words
+    assert lc(50000, 50000, 3, 132).grid[0] == 391
+    assert [lc(64, 64, m, 132).col_stride for m in (1, 2, 3, 4, 5, 8, 9, 0)] \
+        == [1, 2, 4, 4, 8, 8, 0, 0]
+
+
+def _fake_dominance_build(extra=()):
+    """A stand-in for ``build`` whose dominance library holds the 29
+    kernels of ``csrc/dominance.cu`` (plus ``extra``), mangled as nvcc
+    names them in the file's anonymous namespace."""
+    import types
+    names = [f"_ZN12_GLOBAL__N_116dominance_kernelILi{m}ELb{g}ELb{b}EEEvNS_"
+             f"4ArgsE" for m in range(9) for g, b in ((0, 1), (1, 1), (0, 0))]
+    names += [f"_ZN12_GLOBAL__N_122dominance_probe_kernelILb{b}EEEvPKfiPxPi"
+              for b in (0, 1)] + list(extra)
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used {40 + i} registers, used 1 barriers, "
+        f"{1000 + i} bytes smem, 400 bytes cmem[0]"
+        for i, name in enumerate(names))
+    sass = "\n".join(
+        f"\t\tFunction : {name}\n"
+        f"        /*0000*/                   FADD R2, R4, -R6 ;\n"
+        f"        /*0010*/              @P0  LOP3.LUT R1, R2, R3, R5, 0xfe, !PT ;"
+        for name in names)
+    return types.SimpleNamespace(
+        build_log=lambda name: log, sass=lambda name: sass,
+        kernel_resources=build.kernel_resources,
+        sass_counts=build.sass_counts)
+
+
+def test_dominance_build_report_names_every_kernel():
+    """chip_smoke's build line for dominance.cu: each instantiation (M,
+    groups, bitmap) and both probes, with registers, spills, static shared
+    memory and SASS opcode counts; an unknown kernel fails the phase."""
+    smoke = _chip_smoke()
+    rows = smoke.dominance_build_report(_fake_dominance_build())
+    assert len(rows) == 29
+    row = rows["dominance_kernel<0,0,1>"]
+    assert row["registers"] == 40 and row["static_smem_bytes"] == 1000
+    assert row["FADD"] == 1 and row["LOP3"] == 1 and row["FSETP"] == 0
+    assert "dominance_probe_kernel<subtract>" in rows
+    assert "dominance_kernel<8,1,1>" in rows
+    with pytest.raises(RuntimeError, match="unknown kernel"):
+        smoke.dominance_build_report(_fake_dominance_build(
+            ["_ZN12_GLOBAL__N_118dominance_old_kernelEPKfi"]))
 
 
 def test_duplicates_do_not_dominate():
@@ -144,6 +251,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         dominance.dominance_pass(torch.zeros((4, 3)))
     with pytest.raises(ValueError, match="CUDA"):
         dominance.dominated_counts(torch.zeros((4, 3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        dominance.pass_phase_cycles(torch.zeros((4, 3)))
     with pytest.raises(ValueError, match="CUDA"):
         gp.gp_sqdist(torch.zeros((4, 2)), torch.zeros((3, 2)))
     with pytest.raises(ValueError, match="CUDA"):

@@ -1,14 +1,17 @@
 """Time the port's per-tick diffusion kernel (B1), its triangular solve
-(B7) and one chunk of the streaming init in two checkouts of the repo on
-one CUDA card, in turns: A, B, B, A, each run in a process of its own
-(each builds its own kernels), so that a change is read against its parent
-on the same card within one call.
+(B7), its dominance sweeps (B2, B3) and one chunk of the streaming init in
+two checkouts of the repo on one CUDA card, in turns: A, B, B, A, each run
+in a process of its own (each builds its own kernels), so that a change is
+read against its parent on the same card within one call.
 
     python3 tools/compare_trees.py PARENT_DIR CHANGED_DIR [--chunk]
 
 Each run prints one JSON line: B1 at (640, 72, 72) and (20480, 72, 72),
-B7 forward at L 512, B (512, 50,176) and backward at B (512, 2048), each
-checked against its plain version (B1 bitwise; B7 within 1e-4 of max |X|)
+B7 forward at L 512, B (512, 50,176) and backward at B (512, 2048), B2 at
+128 and 256 rows in 8 groups (the GA rankings), 320 rows with 256 of them
++BIG (the first archive merge), 2048 and 8192 rows and B3 at 2048 and 8192
+rows (3 objectives, integers in [0, 1000]), each checked against
+its plain version (B1 bitwise; B7 within 1e-4 of max |X|; B2, B3 equal)
 and timed with CUDA events (median, min and max of 20 samples of 10
 back-to-back calls each, queued behind a spinning card); with --chunk also
 one 20480-lane init chunk at CONFIG (lane-ticks per second). The card's
@@ -53,12 +56,13 @@ def worker(chunk: bool) -> dict:
 
     import torch
 
-    from repro_torch.kernels import build, cholesky, diffusion, ops, ref
+    from repro_torch.kernels import (build, cholesky, diffusion, dominance,
+                                     ops, ref)
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.monotonic()
-    build.build(["diffusion", "trisolve"])
+    build.build(["diffusion", "trisolve", "dominance"])
     out = {"build_s": time.monotonic() - t0}
     for n in (640, 20480):
         chem = torch.rand((n, 72, 72), generator=gen, device=dev) * 100.0
@@ -82,6 +86,27 @@ def worker(chunk: bool) -> dict:
             raise RuntimeError(f"tri_solve trans={trans}: rel err {rel}")
         out[f"b7_{'bwd' if trans else 'fwd'}_{m}_ms"] = events_ms(
             torch, lambda: cholesky.tri_solve_blocked(l, b, trans=trans))
+    for n, grouped in ((128, True), (256, True), (320, False), (2048, False),
+                       (8192, False)):
+        rows = torch.randint(0, 1001, (n, 3), generator=gen,
+                             device=dev).to(torch.float32)
+        if n == 320:            # the first archive merge: 256 empty rows
+            rows[:256] = 1.0e30
+        groups = (torch.arange(8, device=dev, dtype=torch.int32)
+                  .repeat_interleave(n // 8)) if grouped else None
+        got = dominance.dominance_pass(rows, groups=groups)
+        want = ref.dominance_pass_ref(rows, groups=groups)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"dominance_pass not equal at {n}")
+        out[f"b2_{n}{'_grouped' if grouped else ''}_ms"] = events_ms(
+            torch, lambda: dominance.dominance_pass(rows, groups=groups))
+        if grouped or n == 320:
+            continue
+        if not torch.equal(dominance.dominated_counts(rows),
+                           ref.dominated_counts_ref(rows)):
+            raise RuntimeError(f"dominated_counts not equal at {n}")
+        out[f"b3_{n}_ms"] = events_ms(
+            torch, lambda: dominance.dominated_counts(rows))
     if chunk:
         from repro_torch.configs.ants_netlogo import CONFIG
         from repro_torch.launch import explore

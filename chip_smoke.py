@@ -2,10 +2,10 @@
 GPU: builds the hand-written kernels, holds each against its plain PyTorch
 version on the card, drives the island-model calibration and the
 surrogate-assisted calibration of the ants model at the paper's full model
-size, the surrogate's archive-scale fit at 50,000 points, the GP
-factorization sweep and flash attention at smollm-135m's full width,
-measures one chunk of the streaming init, and prints one JSON object per
-line.
+size, the surrogate's archive-scale fit at 50,000 points, the streaming
+init through the fault-tolerant pool seeding a pipelined island run, the
+GP factorization sweep and flash attention at smollm-135m's full width,
+and prints one JSON object per line.
 
     python3 chip_smoke.py
 
@@ -84,7 +84,15 @@ Phases (any failure exits non-zero):
               a tell of 8, a warm ask; launch counts read around it.
   7. chunk    one replicated_batch(simulate_batch) chunk at CONFIG:
               4096 genomes x 5 replicates = 20480 lanes.
-  8. gp_chol  the archive-scale GP factorization of the reference's
+  8. init     the streaming init at CONFIG, 5 replicates, chunks of 4096
+              genomes, 14336 individuals: inline, through the 3 x 2 pool at
+              35 % injected failures, and stopped after 2 chunks then
+              resumed (all three bitwise equal); walls, evaluations/hour,
+              the pool leg's peak memory, the idle share over one chunk,
+              the 200k wall projected; then calibrate seeded by that init
+              through the pool, pipelined, for 2 epochs, launch counts read
+              around it (see init_phase).
+  9. gp_chol  the archive-scale GP factorization of the reference's
               bench_gp_chol at full size: 4096 points in 8 dimensions,
               Matern-5/2, nugget 1e-4, block 512, five lengthscales, one
               ops.gp_chol each (the fused kernel), then the same sweep
@@ -92,7 +100,7 @@ Phases (any failure exits non-zero):
               (bitwise the same factors required); each factor within 2e-4
               of cuSOLVER's of the assembled matrix; launch counts read
               around both sweeps.
-  9. flash    the four flash-attention kernels (B8; B9's forward, dQ and
+ 10. flash    the four flash-attention kernels (B8; B9's forward, dQ and
               dK/dV) through ops.flash_attention_gqa / _or_ref / _gqa_diff
               and a smollm-135m GQA layer's gqa_apply(allow_flash=True), at
               the model's full width (H 9, KH 3, D 64), (4, 4096) in bf16
@@ -102,7 +110,7 @@ Phases (any failure exits non-zero):
               beside the bound, each kernel in turns with SDPA (median and
               min/max), and the layer's time split into projections + RoPE,
               copies and the kernel (see flash_phase).
- 10. the kernels line, the card's name and power limit, and the last line
+ 11. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -771,6 +779,213 @@ def flash_phase(torch, dev, gen) -> tuple:
               0, 2.5 * 2 * b * h * s * s * d, BF16_TENSOR_OPS_PER_S)[0],
           "seconds": time.monotonic() - t_phase})
     return rows, launches
+
+
+def max_in_flight(tasks) -> int:
+    """Most jobs running at once, from TaskRecords' start offsets and wall
+    times (a job's span covers its retries)."""
+    edges = sorted([(t.started_s, 1) for t in tasks]
+                   + [(t.started_s + t.wall_s, -1) for t in tasks],
+                   key=lambda e: (e[0], e[1]))
+    most = now = 0
+    for _, step in edges:
+        now += step
+        most = max(most, now)
+    return most
+
+
+def init_phase(torch, dev, gen) -> tuple:
+    """Phase ``init``: the paper's streaming init (section 4.6) at the
+    model's full size (CONFIG: 72 x 72 world, 125 ants, 1000 ticks) with 5
+    replicates, chunks of 4096 genomes (20480 lanes), depth cut to 14336
+    individuals (3 full chunks and a 2048 remainder). Three legs through
+    ``ga.evaluate_population_streaming``, which must agree bit for bit:
+    (a) inline; (b) through ``make_init_pool(0.35)``, the 3 x 2 pool at
+    35 % injected failures (more attempts than chunks required; every
+    chunk on the card at once); (c) the same pool stopped after 2 chunks
+    into a checkpoint directory, then resumed (2 chunks resumed required).
+    Each leg's wall, evaluations/hour and process CPU time; (b)'s peak
+    memory and the most chunks in flight; the device idle share over one
+    chunk job under torch.profiler; the 200,000-individual wall projected
+    from the measured legs. The kernels at the init's call sites against
+    their plain versions: ``diffuse_evaporate`` on the remainder chunk's
+    10240 lanes (bitwise), ``dominance_pass`` on a 2048-row block of leg
+    (a)'s objectives (integer ticks, many ties: equal), and the top-k's
+    launches. Then ``explore.calibrate(reduced=False, init_population=14336,
+    init_chunk=4096, fault_rate=0.35, pipeline=True, epochs=2)`` with the
+    calibrate phase's other flags, launch counts set to 0 just before it
+    and read just after: evaluations 14336 + 8 * 2 * 4 * 16, a finite,
+    in-bounds, mutually non-dominated front with ``front["init"]``, one
+    ``diffuse_evaporate`` launch a tick of every chunk and every step.
+    Returns the launch counts of that run."""
+    import numpy as np
+
+    from repro_torch.configs.ants_netlogo import CONFIG
+    from repro_torch.core import Context
+    from repro_torch.core.scheduler import RunRecord, _utcnow
+    from repro_torch.evolution import ga
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import explore
+
+    n_total, chunk, reps = 14336, 4096, 5
+    sizes = ga.chunk_sizes(n_total, chunk)
+    n_chunks = len(sizes)
+    cfg = explore.NSGA2Config(mu=16, genome_dim=2, bounds=explore.BOUNDS)
+    eval_fn = explore.ants_eval_fn(CONFIG, reps)
+
+    def leg(**kw):
+        torch.cuda.synchronize()
+        c0, t0 = time.process_time(), time.perf_counter()
+        res = ga.evaluate_population_streaming(
+            cfg, eval_fn, 0, n_total=n_total, chunk=chunk, device=dev, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, time.process_time() - c0
+
+    def row(name, res, wall, cpu, **extra):
+        emit({"phase": "init", "leg": name, "config": "CONFIG",
+              "n_total": n_total, "chunk": chunk, "replicates": reps,
+              "chunks": res.chunks_total, "attempts": res.attempts,
+              "resumed_chunks": res.resumed_chunks, "wall_s": wall,
+              "evaluations_per_hour": n_total / wall * 3600,
+              "process_cpu_s": cpu, **extra})
+
+    ops.reset_kernel_launch_counts()
+    a, wall_a, cpu_a = leg()
+    launches_a = ops.kernel_launch_counts()
+    obj = a.objectives
+    require(obj.shape == (n_total, 3) and a.genomes.shape == (n_total, 2)
+            and bool(np.isfinite(obj).all()) and obj.min() >= 0
+            and obj.max() <= CONFIG.max_ticks
+            and bool(((a.genomes >= 0) & (a.genomes < 99)).all()),
+            "init leg (a): objectives and genomes")
+    require(launches_a["diffuse_evaporate"] == n_chunks * CONFIG.max_ticks,
+            f"init leg (a): diffuse_evaporate launches "
+            f"{launches_a['diffuse_evaporate']}")
+    row("a_inline", a, wall_a, cpu_a, launches=launches_a)
+
+    pool = explore.make_init_pool(0.35)
+    rec = RunRecord(workflow="init", scheduler="stream", environment="pool",
+                    started_at=_utcnow())
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        b, wall_b, cpu_b = leg(environment=pool, record=rec)
+        peak_b = torch.cuda.max_memory_allocated()
+        with tempfile.TemporaryDirectory() as ck:
+            c1, wall_c1, cpu_c1 = leg(environment=pool, checkpoint_dir=ck,
+                                      stop_after_chunks=2)
+            c, wall_c2, cpu_c2 = leg(environment=pool, checkpoint_dir=ck)
+        stats = pool.stats.snapshot()
+    finally:
+        pool.shutdown()
+    for name, res in (("b", b), ("c", c)):
+        require(np.array_equal(res.objectives, a.objectives)
+                and np.array_equal(res.genomes, a.genomes),
+                f"init leg ({name}) differs from leg (a)")
+    require(b.attempts > b.chunks_total == n_chunks,
+            f"init leg (b): {b.attempts} attempts for {b.chunks_total} "
+            f"chunks at 35 % failures")
+    require(c1.interrupted and c1.chunks_done == 2
+            and c.resumed_chunks == 2 and not c.interrupted,
+            f"init leg (c): {c1.chunks_done} chunks before the stop, "
+            f"{c.resumed_chunks} resumed")
+    row("b_pool_3x2_fail_0.35", b, wall_b, cpu_b,
+        peak_memory_gb=peak_b / 1e9, memory_before_gb=base / 1e9,
+        max_chunks_in_flight=max_in_flight(rec.tasks),
+        pool_capacity=pool.total_capacity,
+        pool_stats_after_legs_b_c=stats)
+    row("c_stop_after_2_then_resume", c, wall_c1 + wall_c2, cpu_c1 + cpu_c2,
+        first_wall_s=wall_c1, first_attempts=c1.attempts,
+        resume_wall_s=wall_c2,
+        resume_cost_s=wall_c1 + wall_c2 - wall_b)
+
+    # the device's idle share over one chunk job, as a pool worker runs it
+    task = ga.make_chunk_task(cfg, eval_fn, 0, dev)
+    busy = device_busy_share(torch, lambda: task.run(
+        Context(chunk=0, size=chunk)))
+    emit({"phase": "init", "what": "profile_one_chunk", "lanes": chunk * reps,
+          "ticks": CONFIG.max_ticks, **busy})
+
+    # the kernels at the init's call sites against their plain versions
+    chem = torch.rand((sizes[-1] * reps, 72, 72), generator=gen,
+                      device=dev) * 100.0
+    rate = torch.rand((len(chem),), generator=gen, device=dev)
+    evap = torch.rand((len(chem),), generator=gen, device=dev) * 0.5
+    require(torch.equal(ops.diffuse_evaporate(chem, rate, evap),
+                        ref.diffuse_evaporate_ref(chem, rate, evap)),
+            "diffuse_evaporate at the remainder chunk's lanes")
+    block = torch.from_numpy(obj[:2048]).to(dev)
+    got, want = ops.dominance_pass(block), ref.dominance_pass_ref(block)
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            "dominance_pass on a block of the init's objectives")
+    ops.reset_kernel_launch_counts()
+    top_g, top_o = ga.select_top_streaming(cfg, a.genomes, a.objectives,
+                                           8 * 16, device=dev)
+    topk_launches = ops.kernel_launch_counts()["dominance_pass"]
+    blocks = -(-n_total // 2048)
+    require(topk_launches == blocks + 1 and top_g.shape == (128, 2),
+            f"select_top_streaming: {topk_launches} dominance_pass launches "
+            f"for {blocks} blocks and the final round")
+    emit({"phase": "init", "what": "kernels_at_init_shapes",
+          "diffuse_evaporate_lanes": len(chem), "diffuse_bitwise": True,
+          "dominance_pass_rows": 2048, "dominance_equal": True,
+          "top_k": 128, "top_k_dominance_launches": topk_launches})
+
+    # the 200k wall, projected from the measured legs (not measured)
+    per_ind = {"a_inline": wall_a / n_total, "b_pool": wall_b / n_total}
+    emit({"phase": "init", "what": "projection_200k", "projection": True,
+          "basis": "measured legs (a) and (b) at 14336 individuals",
+          **{f"projected_200k_wall_s_{k}": v * 200000
+             for k, v in per_ind.items()}})
+
+    # the main path: calibrate seeded by the streaming init, pipelined
+    flags = dict(n_islands=8, mu=16, lam=16, steps_per_epoch=4, epochs=2,
+                 replicates=reps, archive_size=256, merge_top_k=8)
+    with tempfile.TemporaryDirectory() as out:
+        ops.reset_kernel_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, front = explore.calibrate(
+            reduced=False, out_dir=out, device="cuda",
+            init_population=n_total, init_chunk=chunk, fault_rate=0.35,
+            pipeline=True,
+            printer=lambda s: emit({"phase": "init", "log": s}), **flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.kernel_launch_counts()
+        files = sorted(p.name for p in Path(out).iterdir())
+    evals = n_total + flags["n_islands"] * flags["epochs"] \
+        * flags["steps_per_epoch"] * flags["lam"]
+    require(front["evaluations"] == evals == state.total_evaluations,
+            f"init calibrate evaluations {front['evaluations']} != {evals}")
+    fobj = torch.tensor(front["objectives"])
+    fgen = torch.tensor(front["genomes"])
+    require(len(fobj) > 0 and bool(torch.isfinite(fobj).all())
+            and fobj.min() >= 0 and fobj.max() <= CONFIG.max_ticks,
+            "init calibrate front objectives in range")
+    require(bool(((fgen >= 0) & (fgen <= 99)).all()),
+            "init calibrate front genomes in bounds")
+    require(not ref.dominance_pass_ref(fobj)[0].any(),
+            "init calibrate front mutually non-dominated")
+    require(front.get("init", {}).get("n_individuals") == n_total,
+            f"front['init'] {front.get('init')}")
+    n_sims = n_chunks + flags["epochs"] * flags["steps_per_epoch"]
+    require(launches["diffuse_evaporate"] == n_sims * CONFIG.max_ticks,
+            f"init calibrate diffuse_evaporate launches "
+            f"{launches['diffuse_evaporate']}")
+    require(launches["dominance_pass"] > topk_launches,
+            f"init calibrate dominance_pass launches "
+            f"{launches['dominance_pass']}")
+    require({"pareto_front.json", "provenance.json", "populations",
+             "init_checkpoints"} <= set(files), f"outputs {files}")
+    emit({"phase": "init", "what": "calibrate", "config": "CONFIG",
+          **flags, "init_population": n_total, "init_chunk": chunk,
+          "fault_rate": 0.35, "pipeline": True, "wall_s": wall,
+          "evaluations": evals, "evaluations_per_hour": evals / wall * 3600,
+          "init": front["init"], "front_size": len(fobj),
+          "launches": launches})
+    return launches
 
 
 def main() -> int:
@@ -1554,7 +1769,12 @@ def main() -> int:
 
     stamp()
 
-    # -- 8. the archive-scale GP factorization: bench_gp_chol at full size ---
+    # -- 8. the streaming init through the pool, seeding a pipelined run -----
+    init_launches = init_phase(torch, dev, gen)
+
+    stamp()
+
+    # -- 9. the archive-scale GP factorization: bench_gp_chol at full size ---
     n_gp, block = 4096, 512
     grid = (0.05, 0.1, 0.2, 0.4, 0.8)
     gkw = dict(kind="matern52", nugget=1e-4)
@@ -1635,17 +1855,18 @@ def main() -> int:
 
     stamp()
 
-    # -- 9. flash attention at smollm-135m's full width ----------------------
+    # -- 10. flash attention at smollm-135m's full width ----------------------
     flash_rows, flash_launches = flash_phase(torch, dev, gen)
     results.update(flash_rows)
 
     stamp()
 
-    # -- 10. the kernels line, the card, the contract line -------------------
+    # -- 11. the kernels line, the card, the contract line -------------------
     # (kernel, result key, source, TPU kernel, the path whose run gives the
     # launches); every path's counts are listed beside it
     by_path = {"ranking": rank_launches,
-               "calibrate": cal_launches, "surrogate": sur_launches,
+               "calibrate": cal_launches, "init": init_launches,
+               "surrogate": sur_launches,
                "surrogate_big": big_launches, "gp_chol": gp_launches,
                "flash": flash_launches}
     rows = (

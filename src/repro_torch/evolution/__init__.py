@@ -2,6 +2,7 @@ from repro_torch.evolution.nsga2 import NSGA2Config  # noqa
 from repro_torch.evolution import ga  # noqa
 from repro_torch.evolution.ga import GAState  # noqa
 from repro_torch.evolution.island import (IslandState,  # noqa
+                                          host_snapshot,
                                           init_island_state, make_epoch,
                                           make_evolve, make_merge,
                                           make_reseed, run_islands,

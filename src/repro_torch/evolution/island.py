@@ -9,9 +9,23 @@ Islands are the leading axis of every ``GAState`` tensor. One epoch =
     all-islands merge into the archive
     reseed islands from the archive
 
-``run_islands`` runs epochs bulk-synchronously, one Python loop iteration per
-epoch, with the checkpoint callback after each. The reference's pipelined
-schedule and its scanned supersteps are not ported yet and raise.
+``run_islands`` runs either schedule of the reference:
+
+- supersteps: ``epochs_per_superstep`` bulk-synchronous epochs between
+  checkpoint boundaries (where the reference scans them into one device
+  program, a superstep here is a loop of eager epochs); the snapshot of a
+  boundary, an independent CPU copy, goes to the checkpoint callback after
+  the next superstep has run;
+- pipelined (``pipeline=True``): the reseed that feeds evolve(e+1) reads
+  the archive of epoch e-1, so evolve(e+1) does not depend on merge(e).
+  Both run on one stream here; the checkpoints hold the already reseeded
+  islands, and the final state has every epoch merged.
+
+The state keeps no random keys: one ``torch.Generator`` drives every draw.
+The checkpoint callback therefore gets the generator's state of the
+boundary beside the snapshot, ``checkpoint_fn(snapshot, rng_state)``, and a
+run restarted from that snapshot with the generator set to ``rng_state``
+continues bit for bit under either schedule.
 """
 from __future__ import annotations
 
@@ -187,6 +201,16 @@ def make_epoch(cfg: NSGA2Config, eval_fn: Callable, *, lam: int,
     return epoch
 
 
+def host_snapshot(state: IslandState) -> IslandState:
+    """An independent CPU copy of ``state`` for checkpointing: it shares no
+    storage with the live state, which the next epochs go on to replace."""
+    def cpu(tree):
+        return type(tree)(*(t.detach().to("cpu", copy=True) for t in tree))
+
+    return IslandState(cpu(state.islands), cpu(state.archive), state.epoch,
+                       state.total_evaluations)
+
+
 def run_islands(cfg: NSGA2Config, eval_fn, generator: torch.Generator, *,
                 n_islands: int, lam: int, steps_per_epoch: int, epochs: int,
                 archive_size: int = 1024, checkpoint_fn=None,
@@ -194,24 +218,68 @@ def run_islands(cfg: NSGA2Config, eval_fn, generator: torch.Generator, *,
                 pipeline: bool = False, epochs_per_superstep: int = 0,
                 start_state: IslandState = None,
                 device="cuda") -> IslandState:
-    """Synchronous host loop over epochs, ``checkpoint_fn(state)`` after
-    each. ``start_state`` resumes (the caller restores the generator). A
-    fresh state is made on ``device``: the card unless the caller asks for
-    the CPU."""
-    if pipeline:
-        raise NotImplementedError(
-            "pipeline=True (double-buffered epochs) is not ported yet")
-    if epochs_per_superstep:
-        raise NotImplementedError(
-            "epochs_per_superstep (fused supersteps) is not ported yet")
+    """Host loop over epochs up to ``epochs``. ``start_state`` resumes (the
+    caller restores the generator). A fresh state is made on ``device``:
+    the card unless the caller asks for the CPU.
+
+    pipeline=False: supersteps of ``epochs_per_superstep`` epochs; 0 picks
+    the natural grain, every remaining epoch without a ``checkpoint_fn``,
+    else 1. The snapshot of boundary s goes to ``checkpoint_fn`` after
+    superstep s+1 has run.
+    pipeline=True: the double-buffered schedule (module docstring); the
+    archive trails the synchronous schedule's by one epoch.
+
+    ``checkpoint_fn(snapshot, rng_state)``: ``snapshot`` is a CPU copy
+    (``host_snapshot``) of the state at a boundary, ``rng_state`` the
+    generator's state there (``generator.get_state()``)."""
     device = resolve_device(device)
     state = start_state if start_state is not None else init_island_state(
         cfg, generator, n_islands=n_islands, archive_size=archive_size,
         device=device)
-    epoch = make_epoch(cfg, eval_fn, lam=lam, steps_per_epoch=steps_per_epoch,
-                       reseed_frac=reseed_frac, merge_top_k=merge_top_k)
-    while state.epoch < epochs:
-        state = epoch(state, generator)
+    e0 = state.epoch
+    if e0 >= epochs:
+        return state
+
+    if not pipeline:
+        epoch = make_epoch(cfg, eval_fn, lam=lam,
+                           steps_per_epoch=steps_per_epoch,
+                           reseed_frac=reseed_frac, merge_top_k=merge_top_k)
+        grain = epochs_per_superstep or (
+            1 if checkpoint_fn is not None else epochs - e0)
+        pending = None
+        for s in range(e0, epochs, grain):
+            for _ in range(min(grain, epochs - s)):
+                state = epoch(state, generator)
+            if checkpoint_fn is not None:
+                if pending is not None:
+                    checkpoint_fn(*pending)
+                pending = (host_snapshot(state), generator.get_state())
+        if pending is not None:
+            checkpoint_fn(*pending)
+        return state
+
+    evolve = make_evolve(cfg, eval_fn, lam=lam,
+                         steps_per_epoch=steps_per_epoch)
+    merge_islands = make_merge(cfg, merge_top_k=merge_top_k)
+    reseed_islands = make_reseed(cfg, reseed_frac=reseed_frac)
+    n_i = state.islands.genomes.shape[0]     # honour start_state's count
+    per_epoch = n_i * steps_per_epoch * lam
+    archive = state.archive
+    total = state.total_evaluations
+    evolved = evolve(state.islands, generator)
+    for e in range(e0, epochs):
+        total += per_epoch + (e == 0) * n_i * cfg.mu
+        new_archive = merge_islands(archive, evolved)     # selection, e
+        last = e + 1 == epochs
+        # reseed from the stale archive: evolve(e+1) does not wait for
+        # merge(e)
+        seeded = evolved if last else reseed_islands(evolved, archive,
+                                                     generator)
+        rng = generator.get_state()   # a resume evolves `seeded` from here
+        next_evolved = None if last else evolve(seeded, generator)
+        archive = new_archive
+        state = IslandState(seeded, archive, e + 1, total)
         if checkpoint_fn is not None:
-            checkpoint_fn(state)
+            checkpoint_fn(host_snapshot(state), rng)
+        evolved = next_evolved
     return state

@@ -12,9 +12,14 @@ epoch or round (restart-safe).
     PYTHONPATH=src python -m repro_torch.launch.explore --reduced \\
         --device cpu --out /tmp/ants_cpu                    # plain path
 
+    PYTHONPATH=src python -m repro_torch.launch.explore \\
+        --init-population 200000 --init-chunk 4096 --fault-rate 0.3 \\
+        --pipeline --out /tmp/ants_200k     # the paper's 200k init first
+
 Islands write ``pareto_front.json``, ``provenance.json`` and
-``populations/``; the surrogate writes ``surrogate_result.json`` and
-``provenance.json``; both with the reference's keys. A rerun with the same
+``populations/`` (and ``init_checkpoints/`` with ``--init-population``);
+the surrogate writes ``surrogate_result.json`` and ``provenance.json``;
+both with the reference's keys. A rerun with the same
 ``--out`` resumes from the last committed epoch or round, and refuses to
 when the checkpoint was written by a run of other settings (model config,
 widths, replicates, device). Methods and flags whose machinery is not
@@ -39,8 +44,9 @@ from repro_torch.core import (Context, EnvironmentPool, FaultSpec,
                               LocalEnvironment, SavePopulationHook)
 from repro_torch.core.cache import hash_value
 from repro_torch.core.scheduler import RunRecord, TaskRecord, _utcnow
-from repro_torch.evolution import (NSGA2Config, init_island_state,
-                                   pareto_front, run_islands)
+from repro_torch.evolution import (Archive, NSGA2Config, ga,
+                                   init_island_state, pareto_front,
+                                   run_islands)
 from repro_torch.explore import replicated_batch
 from repro_torch.explore.surrogate import SurrogateConfig, run_surrogate
 from repro_torch.runtime.device import make_generator, resolve_device
@@ -75,10 +81,22 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
               lam: int = 16, steps_per_epoch: int = 4, epochs: int = 5,
               replicates: int = 5, archive_size: int = 256,
               merge_top_k: int = 8, out_dir: str,
-              reseed_frac: float = 0.5, device="cuda", printer=print):
+              pipeline: bool = False, reseed_frac: float = 0.5,
+              epochs_per_superstep: int = 0, init_population: int = 0,
+              init_chunk: int = 2048, fault_rate: float = 0.0,
+              device="cuda", printer=print):
     """Island-model NSGA-II calibration of the ants model on ``device``.
-    Returns (final IslandState, the pareto_front.json dict)."""
+    With ``init_population`` the islands are seeded from the best
+    ``n_islands * mu`` of that many individuals, evaluated first in chunks
+    of ``init_chunk`` through the environment pool of ``make_init_pool``
+    (``fault_rate``: its injected per-attempt failure rate), checkpointed
+    under ``out_dir/init_checkpoints``. Returns (final IslandState, the
+    pareto_front.json dict)."""
     dev = resolve_device(device)
+    if init_population and init_population < n_islands * mu:
+        raise ValueError(
+            f"--init-population must cover the island populations: need "
+            f">= n_islands*mu = {n_islands * mu}, got {init_population}")
     ants_cfg = REDUCED if reduced else CONFIG
     ga_cfg = NSGA2Config(mu=mu, genome_dim=2, bounds=BOUNDS, n_objectives=3)
     eval_fn = ants_eval_fn(ants_cfg, replicates)
@@ -87,13 +105,20 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
     pop_hook = SavePopulationHook(os.path.join(out_dir, "populations"))
     ckpt_dir = os.path.join(out_dir, "checkpoints")
 
-    # what a checkpoint must match to be resumed (epochs may grow)
-    settings = {
-        "ants": dataclasses.asdict(ants_cfg), "device": dev.type,
-        "n_islands": n_islands, "mu": mu, "lam": lam,
-        "steps_per_epoch": steps_per_epoch, "replicates": replicates,
-        "archive_size": archive_size, "merge_top_k": merge_top_k,
-        "reseed_frac": reseed_frac}
+    # what a checkpoint must match to be resumed (epochs may grow; the
+    # superstep grain and the fault rate change when or where work runs,
+    # never its result)
+    common = {"ants": dataclasses.asdict(ants_cfg), "device": dev.type,
+              "replicates": replicates}
+    init_settings = json.dumps(dict(
+        common, init_population=init_population, init_chunk=init_chunk,
+        seed=0), sort_keys=True)
+    settings = dict(
+        common, n_islands=n_islands, mu=mu, lam=lam,
+        steps_per_epoch=steps_per_epoch, archive_size=archive_size,
+        merge_top_k=merge_top_k, reseed_frac=reseed_frac, pipeline=pipeline,
+        init=({"population": init_population, "chunk": init_chunk}
+              if init_population else None))
     settings_json = json.dumps(settings, sort_keys=True)
     cfg_digest = hash_value(settings)
 
@@ -113,8 +138,10 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
 
     # run-record provenance (the reference's schema): one TaskRecord per
     # committed epoch, resumed epochs marked cache hits
-    record = RunRecord(workflow="ants-calibration", scheduler="islands",
-                       environment=f"torch:{dev}", started_at=_utcnow())
+    record = RunRecord(
+        workflow="ants-calibration",
+        scheduler="islands-pipelined" if pipeline else "islands",
+        environment=f"torch:{dev}", started_at=_utcnow())
     run_t0 = time.monotonic()
     last_epoch_t = [run_t0]
     if start is not None:
@@ -125,26 +152,67 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
                 started_s=0.0, wall_s=0.0, retries=0, cache_hit=True,
                 mode="cache"))
 
-    def on_epoch(state):
+    def on_epoch(state, rng):
+        # state: a CPU snapshot of the boundary; rng: the generator there
         e = state.epoch
-        checkpoint.save(ckpt_dir, e, {"state": state,
-                                      "rng": generator.get_state().numpy(),
+        checkpoint.save(ckpt_dir, e, {"state": state, "rng": rng.numpy(),
                                       "settings": settings_json})
         now = time.monotonic()
         record.tasks.append(TaskRecord(
             task="island_epoch", capsule=e, environment=record.environment,
             inputs_digest=cfg_digest, started_s=last_epoch_t[0] - run_t0,
             wall_s=now - last_epoch_t[0], retries=0, cache_hit=False,
-            mode="lanes"))
+            mode="pipelined" if pipeline else "lanes"))
         last_epoch_t[0] = now
-        mask = pareto_front(state.archive).cpu().numpy()
-        obj = state.archive.objectives.cpu().numpy()
+        mask = pareto_front(Archive(*(t.to(dev) for t in state.archive)))
+        mask = mask.cpu().numpy()
+        obj = state.archive.objectives.numpy()
         pop_hook(Context(generation=e,
-                         genomes=state.archive.genomes.cpu().numpy(),
+                         genomes=state.archive.genomes.numpy(),
                          objectives=obj))
         printer(f"[explore] epoch {e}: evals={state.total_evaluations} "
                 f"front={int(mask.sum())} "
                 f"best t1={obj[mask, 0].min() if mask.any() else float('nan'):.0f}")
+
+    # the paper-scale streaming init: evaluate a large initial population
+    # through the (optionally fault-injected) pool, in chunks, with
+    # mid-population checkpoint/resume; seed the islands from its best.
+    # Skipped when resuming an island checkpoint (its state embodies it).
+    init_record = None
+    if init_population and start is None:
+        pool = make_init_pool(fault_rate)
+        try:
+            sres = ga.evaluate_population_streaming(
+                ga_cfg, eval_fn, 0, n_total=init_population,
+                chunk=init_chunk, environment=pool, record=record,
+                device=dev, settings=init_settings,
+                checkpoint_dir=os.path.join(out_dir, "init_checkpoints"),
+                progress=lambda k, n: printer(
+                    f"[explore] init chunk {k}/{n}") if k % 8 == 0 else None)
+        finally:
+            pool.shutdown()
+        printer(f"[explore] init: {init_population} individuals in "
+                f"{sres.wall_s:.1f}s ({sres.attempts} attempts, "
+                f"{sres.resumed_chunks} chunks resumed) -> "
+                f"{init_population / max(sres.wall_s, 1e-9) * 3600:.0f} "
+                f"evals/hour")
+        top_g, top_o = ga.select_top_streaming(
+            ga_cfg, sres.genomes, sres.objectives, n_islands * mu,
+            device=dev)
+        # a throwaway generator: the run's own draws start at the islands
+        st0 = init_island_state(ga_cfg, torch.Generator(device=dev),
+                                n_islands=n_islands,
+                                archive_size=archive_size, device=dev)
+        islands = st0.islands._replace(
+            genomes=top_g.reshape(n_islands, mu, -1),
+            objectives=top_o.reshape(n_islands, mu, -1),
+            valid=torch.ones((n_islands, mu), dtype=torch.bool, device=dev))
+        # epoch-0 accounting adds n_islands*mu for the (skipped) initial
+        # evaluation; pre-subtract so the total counts init_population once
+        start = st0._replace(
+            islands=islands,
+            total_evaluations=init_population - n_islands * mu)
+        init_record = sres
 
     t0 = time.time()
     state = run_islands(
@@ -152,6 +220,7 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
         steps_per_epoch=steps_per_epoch, epochs=epochs,
         archive_size=archive_size, checkpoint_fn=on_epoch,
         merge_top_k=min(merge_top_k, mu), reseed_frac=reseed_frac,
+        pipeline=pipeline, epochs_per_superstep=epochs_per_superstep,
         start_state=start, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -167,6 +236,12 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
         "evaluations": evals,
         "wall_s": dt,
     }
+    if init_record is not None:
+        front["init"] = {"n_individuals": init_population,
+                         "wall_s": init_record.wall_s,
+                         "attempts": init_record.attempts,
+                         "resumed_chunks": init_record.resumed_chunks,
+                         "fault_rate": fault_rate}
     with open(os.path.join(out_dir, "pareto_front.json"), "w") as f:
         json.dump(front, f, indent=2)
     record.finalize(dt)
@@ -244,12 +319,10 @@ def calibrate_surrogate(*, reduced: bool = True, rounds: int = 8, q: int = 8,
 
 
 # flags of the reference CLI whose machinery the port does not have yet
-_NOT_PORTED = {"pipeline": "--pipeline", "superstep": "--superstep",
-               "mesh": "--mesh", "distributed": "--distributed",
+_NOT_PORTED = {"mesh": "--mesh", "distributed": "--distributed",
                "coordinator": "--coordinator",
                "num_processes": "--num-processes",
                "process_id": "--process-id",
-               "init_population": "--init-population",
                "pool_devices": "--pool-devices"}
 
 
@@ -273,26 +346,35 @@ def main(argv=None):
     ap.add_argument("--epochs", type=int, default=5)
     ap.add_argument("--replicates", type=int, default=5)
     ap.add_argument("--reseed-frac", type=float, default=0.5)
+    ap.add_argument("--pipeline", action="store_true",
+                    help="pipelined epochs: the reseed feeding epoch k+1 "
+                         "reads the archive of epoch k-1, so evolve(k+1) "
+                         "does not wait for merge(k) (EGI-style)")
+    ap.add_argument("--superstep", type=int, default=0,
+                    help="epochs between checkpoints (0 = 1 per "
+                         "checkpoint)")
+    ap.add_argument("--init-population", type=int, default=0,
+                    help="evaluate a large initial population (the paper's "
+                         "200000) through the fault-tolerant environment "
+                         "pool before the island run, streaming in "
+                         "--init-chunk jobs with mid-population "
+                         "checkpoint/resume; islands seed from its best")
+    ap.add_argument("--init-chunk", type=int, default=2048)
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="injected per-attempt job-failure rate of the "
+                         "evaluation pool (the init's or the surrogate's; "
+                         "results stay bit-exact)")
     ap.add_argument("--out",
                     default=os.path.join(tempfile.gettempdir(), "repro_ants"),
                     help="output and checkpoint directory (default: "
                          "repro_ants under the temporary directory)")
     # the reference's flags whose machinery is not ported yet: given a
-    # non-default value they stop the run (--init-chunk only matters with
-    # --init-population)
-    ap.add_argument("--pipeline", action="store_true")
-    ap.add_argument("--superstep", type=int, default=0)
+    # non-default value they stop the run
     ap.add_argument("--mesh", default="")
     ap.add_argument("--distributed", action="store_true")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
-    ap.add_argument("--init-population", type=int, default=0)
-    ap.add_argument("--init-chunk", type=int, default=2048)
-    ap.add_argument("--fault-rate", type=float, default=0.0,
-                    help="injected per-attempt job-failure rate of the "
-                         "surrogate's evaluation pool (results stay "
-                         "bit-exact)")
     ap.add_argument("--pool-devices", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=8,
                     help="surrogate ask/tell rounds (of --q proposals each)")
@@ -316,14 +398,14 @@ def main(argv=None):
                             fault_rate=args.fault_rate, out_dir=args.out,
                             device=args.device)
         return
-    if args.fault_rate:
-        ap.error("--fault-rate is not ported yet for --method islands (it "
-                 "comes with --init-population)")
     calibrate(reduced=args.reduced, n_islands=args.islands, mu=args.mu,
               lam=args.lam, steps_per_epoch=args.steps_per_epoch,
               epochs=args.epochs, replicates=args.replicates,
-              reseed_frac=args.reseed_frac, out_dir=args.out,
-              device=args.device)
+              pipeline=args.pipeline, reseed_frac=args.reseed_frac,
+              epochs_per_superstep=args.superstep,
+              init_population=args.init_population,
+              init_chunk=args.init_chunk, fault_rate=args.fault_rate,
+              out_dir=args.out, device=args.device)
 
 
 if __name__ == "__main__":

@@ -149,9 +149,7 @@ def test_calibrate_refuses_missing_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--pipeline"], ["--superstep", "2"], ["--mesh", "data=2"],
-    ["--distributed"], ["--init-population", "4096"],
-    ["--fault-rate", "0.3"], ["--pool-devices", "2"],
+    ["--mesh", "data=2"], ["--distributed"], ["--pool-devices", "2"],
     ["--method", "surrogate-mo"], ["--method", "service"]])
 def test_cli_flags_not_ported_yet(argv, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:
@@ -160,14 +158,45 @@ def test_cli_flags_not_ported_yet(argv, capsys, tmp_path):
     assert "not ported yet" in capsys.readouterr().err
 
 
-def test_run_islands_refuses_unported_schedules():
-    with pytest.raises(NotImplementedError):
-        island.run_islands(None, None, None, n_islands=1, lam=1,
-                           steps_per_epoch=1, epochs=1, pipeline=True)
-    with pytest.raises(NotImplementedError):
-        island.run_islands(None, None, None, n_islands=1, lam=1,
-                           steps_per_epoch=1, epochs=1,
-                           epochs_per_superstep=2)
+TINY = ["--device", "cpu", "--reduced", "--islands", "2", "--mu", "4",
+        "--lam", "4", "--steps-per-epoch", "1", "--epochs", "2",
+        "--replicates", "1"]
+
+
+# each flag of the reference's --method islands that the port runs, end to
+# end through the CLI at a tiny size: (argv, what it must leave behind)
+@pytest.mark.parametrize("argv,expect", [
+    (["--pipeline"], {"scheduler": "islands-pipelined", "steps": [1, 2]}),
+    (["--superstep", "2"], {"scheduler": "islands", "steps": [2]}),
+    (["--init-population", "32"], {"init": 32, "chunks": 1}),
+    (["--init-population", "32", "--init-chunk", "16"],
+     {"init": 32, "chunks": 2}),
+    (["--init-population", "32", "--init-chunk", "8", "--fault-rate", "0.3"],
+     {"init": 32, "chunks": 4, "fault_rate": 0.3})])
+def test_cli_runs_each_ported_flag(argv, expect, tmp_path):
+    explore.main(TINY + argv + ["--out", str(tmp_path)])
+    with open(tmp_path / "pareto_front.json") as f:
+        front = json.load(f)
+    with open(tmp_path / "provenance.json") as f:
+        record = json.load(f)
+    epochs = [t["capsule"] for t in record["tasks"]
+              if t["task"] == "island_epoch"]
+    # one record per checkpoint: every epoch, or every superstep
+    assert epochs == expect.get("steps", [1, 2]) and front["objectives"]
+    assert _mutually_nondominated(front["objectives"])
+    if "scheduler" in expect:
+        assert record["scheduler"] == expect["scheduler"]
+        assert sorted(os.listdir(tmp_path / "checkpoints")) == [
+            f"step_{s:08d}" for s in expect["steps"]]
+        assert "init" not in front and front["evaluations"] == 2 * (4 + 8)
+    if "init" in expect:
+        chunks = [t for t in record["tasks"] if t["task"] == "init_chunk"]
+        assert len(chunks) == expect["chunks"]
+        assert front["init"]["n_individuals"] == expect["init"]
+        assert front["init"]["fault_rate"] == expect.get("fault_rate", 0.0)
+        assert front["init"]["attempts"] == sum(
+            len(t["attempts"]) for t in chunks) >= expect["chunks"]
+        assert front["evaluations"] == expect["init"] + 2 * 2 * 4
 
 
 def test_run_islands_defaults_to_the_card(monkeypatch):

@@ -675,3 +675,33 @@ def test_calibrate_surrogate_on_cuda_faults_and_resume_bitwise(cuda,
     for other in (faulty, resumed):
         assert (other.genomes == clean.genomes).all()
         assert (other.objectives == clean.objectives).all()
+
+
+def test_streaming_init_on_cuda_inline_equals_the_faulty_pool(cuda):
+    """The streaming init at REDUCED on the card: inline, and through the
+    3 x 2 pool at 35 % injected failures (six chunks on the card at once),
+    give the same genomes and objectives bit for bit; every chunk ran the
+    diffusion kernel once a tick."""
+    from repro_torch.evolution import ga
+    from repro_torch.launch import explore
+    cfg = explore.NSGA2Config(mu=16, genome_dim=2, bounds=explore.BOUNDS)
+    eval_fn = explore.ants_eval_fn(explore.REDUCED, 2)
+    kw = dict(n_total=256, chunk=64, device=cuda)
+    ops.reset_kernel_launch_counts()
+    inline = ga.evaluate_population_streaming(cfg, eval_fn, 0, **kw)
+    assert ops.kernel_launch_counts()["diffuse_evaporate"] == \
+        4 * explore.REDUCED.max_ticks
+    pool = explore.make_init_pool(0.35)
+    try:
+        pooled = ga.evaluate_population_streaming(cfg, eval_fn, 0,
+                                                  environment=pool, **kw)
+    finally:
+        pool.shutdown()
+    assert (inline.genomes == pooled.genomes).all()
+    assert (inline.objectives == pooled.objectives).all()
+    assert inline.objectives.shape == (256, 3)
+    assert pooled.attempts >= pooled.chunks_total == 4
+    top_g, top_o = ga.select_top_streaming(cfg, pooled.genomes,
+                                           pooled.objectives, 16,
+                                           device=cuda)
+    assert top_g.device.type == "cuda" and top_o.shape == (16, 3)

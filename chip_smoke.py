@@ -4,8 +4,9 @@ version on the card, drives the island-model calibration and the
 surrogate-assisted calibration of the ants model at the paper's full model
 size, the surrogate's archive-scale fit at 50,000 points, the streaming
 init through the fault-tolerant pool seeding a pipelined island run, the
-GP factorization sweep and flash attention at smollm-135m's full width,
-and prints one JSON object per line.
+GP factorization sweep, flash attention at smollm-135m's full width and the
+paper's Listings 2-5 through the workflow DSL, and prints one JSON object
+per line.
 
     python3 chip_smoke.py
 
@@ -110,7 +111,21 @@ Phases (any failure exits non-zero):
               beside the bound, each kernel in turns with SDPA (median and
               min/max), and the layer's time split into projections + RoPE,
               copies and the kernel (see flash_phase).
- 11. the kernels line, the card's name and power limit, and the last line
+ 11. dsl      the paper's Listings 2-5 written against the port's
+              workflow DSL at CONFIG: Listing 2 (one TorchTask run, equal to
+              a direct simulate, 1000 diffuse_evaporate launches), Listing 3
+              (seed replication + median, serial == async == cached bitwise,
+              no launch from the cache), both also on a cut REDUCED world
+              whose first source empties within 60 ticks (there Listing 3
+              also runs through a pool that fails every first attempt),
+              Listing 4 (run_generational at mu 10, lam 10, 5 replicates, 10
+              generations), Listing 5 (an island capsule on an environment,
+              its saved population equal to the archive), the two kernels
+              against their plain versions at those shapes, dominance_pass
+              also on seeded objectives with ties and +BIG rows, launch
+              counts read around each Listing (the "dsl" path of the
+              kernels line; see dsl_phase).
+ 12. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -988,6 +1003,335 @@ def init_phase(torch, dev, gen) -> tuple:
     return launches
 
 
+def dsl_phase(torch, dev) -> dict:
+    """Phase ``dsl``: the paper's Listings 2-5 written against the port's
+    workflow DSL, at CONFIG (the paper's 72 x 72 world, 125 ants, 1000
+    ticks) on the card. Each Listing's launch counts are set to 0 just
+    before it and read just after; the comparisons run outside those
+    windows.
+
+    Listing 2: one ``TorchTask`` run of ``simulate`` (seed 42, diffusion 50,
+    evaporation 10) in a capsule hooked with ``ToStringHook``: objectives
+    bitwise equal to a direct ``simulate`` with the same seed, exactly
+    ``max_ticks`` ``diffuse_evaporate`` launches. Listing 3: ``head >>
+    explore(SeedSampling(seed, 5, seed=7)) >> model >> aggregate() >>
+    StatisticTask(median)``, serial, async with ``cache=True`` (bitwise
+    equal; it fills the cache) and async with ``cache=True`` again (every
+    model firing a hit, no launch, bitwise equal). At CONFIG every run
+    gives the 1000-tick cap, so both Listings run again on REDUCED's world
+    cut to 60 ticks with sources of radius 1 and 256 ants, where the first
+    source empties within the horizon and the five seeds must give
+    different runs; there Listing 3 runs a fourth time with its model on an
+    ``EnvironmentPool`` of 3 x 2 slots whose members fail every lane's
+    first attempt (each of the 5 lanes requeued once, bitwise equal).
+    Listing 4: ``run_generational`` at the paper's settings (mu 10, lam 10,
+    5 replicates through ``replicated_batch``, 10 generations, reevaluate
+    0.01), evaluations 10 + 10 * 10. Listing 5: a capsule running
+    ``run_islands`` (4 islands, mu 10, lam 10, 1 step an epoch, 2 epochs,
+    5 replicates) placed ``.on(LocalEnvironment())`` and hooked with
+    ``SavePopulationHook``: the saved rows equal the archive's. Then the two
+    kernels at the Listings' shapes against their plain versions:
+    ``diffuse_evaporate`` at 1, 50 and 200 lanes (bitwise),
+    ``dominance_pass`` on Listing 4's populations and Listing 5's islands
+    and archive, and at the same shapes and groupings (20 rows in one
+    group, 40 rows in 4 groups, 128 rows ungrouped) on seeded objectives
+    with ties and +BIG rows (equal). Returns the launch counts summed over
+    the Listings' windows."""
+    import csv
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.ants import simulate
+    from repro_torch.configs.ants_netlogo import BOUNDS, CONFIG, REDUCED
+    from repro_torch.core import (Capsule, EnvironmentPool, FaultSpec,
+                                  LocalEnvironment, PyTask,
+                                  SavePopulationHook, ToStringHook,
+                                  TorchTask, Val, aggregate, explore, puzzle)
+    from repro_torch.evolution import (NSGA2Config, nsga2, run_islands,
+                                       run_generational)
+    from repro_torch.explore import SeedSampling, StatisticTask, median
+    from repro_torch.kernels import diffusion, dominance, ops, ref
+    from repro_torch.launch.explore import ants_eval_fn
+    from repro_torch.runtime.device import make_generator
+
+    t_phase = time.monotonic()
+    total = {}
+    by_listing = {}
+
+    def window(name, fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after; (result, wall s, launches)."""
+        torch.cuda.synchronize()
+        ops.reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.kernel_launch_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        by_listing[name] = {k: v for k, v in launches.items() if v}
+        return out, wall, launches
+
+    seed = Val("seed", int)
+    foods = [Val(f"food{i}", float) for i in (1, 2, 3)]
+    meds = [Val(f"medNumberFood{i}", float) for i in (1, 2, 3)]
+
+    def ants_task(cfg):
+        def ants_fn(gDiffusionRate, gEvaporationRate, seed):
+            # a generator of its own, from the seed, on every call
+            obj = simulate(cfg, gDiffusionRate, gEvaporationRate,
+                           generator=make_generator(int(seed), dev),
+                           device=dev)
+            return {"food1": obj[0], "food2": obj[1], "food3": obj[2]}
+
+        return TorchTask(
+            "ants", ants_fn,
+            inputs=(Val("gDiffusionRate", float),
+                    Val("gEvaporationRate", float), seed),
+            outputs=tuple(foods),
+            defaults={"seed": 42, "gDiffusionRate": 50.0,
+                      "gEvaporationRate": 10.0}, device=dev)
+
+    # no source empties within the horizon at CONFIG or REDUCED with these
+    # rates, so every run gives the cap; on REDUCED's world cut to 60 ticks
+    # with sources of radius 1 and 256 ants the first source empties, and
+    # the seeds give different ticks
+    small = dc.replace(REDUCED, max_ticks=60, food_radius=1.0,
+                       population=256)
+
+    # -- Listing 2 ---------------------------------------------------------
+    def listing2(cfg, name):
+        shown = []
+        res, wall, launches = window(f"listing2_{name}", lambda: puzzle(
+            Capsule(ants_task(cfg)).hook(ToStringHook(
+                *foods, printer=shown.append))).run())
+        (ctx,) = list(res.values())[0]
+        got = torch.stack([ctx[f.name] for f in foods])
+        want = simulate(cfg, 50.0, 10.0, generator=make_generator(42, dev),
+                        device=dev)
+        require(got.device.type == dev.type and torch.equal(got, want),
+                f"Listing 2 {name}: {got.tolist()} against a direct "
+                f"simulate {want.tolist()}")
+        require(launches["diffuse_evaporate"] == cfg.max_ticks,
+                f"Listing 2 {name}: {launches['diffuse_evaporate']} "
+                f"diffuse_evaporate launches, not {cfg.max_ticks}")
+        require(len(shown) == 1,
+                f"Listing 2 {name}: ToStringHook showed {shown}")
+        emit({"phase": "dsl", "listing": 2, "config": name, "wall_s": wall,
+              "objectives": got.tolist(), "shown": shown[0],
+              "at_cap": bool((got == cfg.max_ticks).all()),
+              "equals_direct_simulate": True,
+              "launches": by_listing[f"listing2_{name}"]})
+
+    listing2(CONFIG, "CONFIG")
+    listing2(small, "REDUCED_small_sources")
+
+    # -- Listing 3 ---------------------------------------------------------
+    def listing3(cfg, name, pool=None):
+        # the async run fills the process-global cache (cache=True), and
+        # the run after it finds every firing there; with a pool, a fourth
+        # run places the model on it, without the cache
+        kinds = [("serial", dict(scheduler="serial")),
+                 ("async", dict(scheduler="async", cache=True)),
+                 ("cached", dict(scheduler="async", cache=True))]
+        if pool is not None:
+            kinds.append(("pool", dict(scheduler="async")))
+        runs = []
+        for kind, kw in kinds:
+            p, model, stat = puzzle_and_roles(
+                cfg, pool if kind == "pool" else None)
+            res, wall, launches = window(f"{name}_{kind}",
+                                         lambda: p.run(**kw))
+            modes = sorted({r.mode for r in p.workflow.last_record.tasks
+                            if r.task == "ants"})
+            runs.append((kind, res[model], res[stat][0], wall, launches,
+                         modes))
+        first = runs[0]
+        objs = torch.stack([torch.stack([c[f.name] for f in foods])
+                            for c in first[1]])
+        for kind, model_out, stat_out, wall, launches, modes in runs:
+            o = torch.stack([torch.stack([c[f.name] for f in foods])
+                             for c in model_out])
+            m = torch.stack([stat_out[v.name] for v in meds])
+            require(torch.equal(o, objs) and torch.equal(
+                m, torch.stack([first[2][v.name] for v in meds])),
+                f"{name} {kind}: differs from the serial run")
+            n_b1 = 0 if kind == "cached" else 5 * cfg.max_ticks
+            require(launches["diffuse_evaporate"] == n_b1,
+                    f"{name} {kind}: {launches['diffuse_evaporate']} "
+                    f"diffuse_evaporate launches, not {n_b1}")
+            require(modes == (["cache"] if kind == "cached" else ["lanes"]),
+                    f"{name} {kind}: model firings {modes}")
+            require(m.device.type == dev.type,
+                    f"{name}: medians off the card")
+        require(torch.equal(torch.stack([first[2][v.name] for v in meds]),
+                            median(objs, axis=0)),
+                f"{name}: medians of the five runs")
+        distinct = len({tuple(r) for r in objs.tolist()})
+        require(cfg is not small or distinct > 1,
+                f"{name}: the five seeds gave one run {objs.tolist()}")
+        extra = {}
+        if pool is not None:
+            st = pool.stats
+            require(st.resubmissions == st.failed_attempts == 5
+                    and st.completed == 5 and st.in_flight == 0,
+                    f"{name} pool: {dc.asdict(st)}")
+            extra = {"pool_stats": dc.asdict(st)}
+        emit({"phase": "dsl", "listing": 3, "config": name, **extra,
+              "seeds": [int(c["seed"]) for c in first[1]],
+              "objectives": objs.tolist(),
+              "medians": [first[2][v.name].item() for v in meds],
+              "serial_equals_async_equals_cached": True,
+              "at_cap": bool((objs == cfg.max_ticks).all()),
+              "distinct_runs": distinct,
+              **{f"{r[0]}_wall_s": r[3] for r in runs},
+              "launches": {r[0]: by_listing[f"{name}_{r[0]}"] for r in runs}})
+
+    def puzzle_and_roles(cfg, environment=None):
+        model = Capsule(ants_task(cfg))
+        if environment is not None:
+            model.on(environment)
+        stat = Capsule(StatisticTask("statistic",
+                                     list(zip(foods, meds, [median] * 3))))
+        head = Capsule(PyTask("head", lambda ctx: {}))
+        return (puzzle(head) >> explore(SeedSampling(seed, 5, seed=7))
+                >> model >> aggregate() >> stat), model, stat
+
+    listing3(CONFIG, "CONFIG")
+    # every member fails each lane's first attempt (before the model runs)
+    # and never its second
+    pool = EnvironmentPool(
+        [LocalEnvironment(name=f"worker{i}", capacity=2,
+                          faults=FaultSpec(fail_rate=1.0, fail_limit=1,
+                                           seed=i)) for i in range(3)],
+        retries=2, backoff_s=0.0)
+    try:
+        listing3(small, "REDUCED_small_sources", pool)
+    finally:
+        pool.shutdown()
+
+    # -- Listing 4 ---------------------------------------------------------
+    mu = lam = 10
+    gens, reps = 10, 5
+    cfg = NSGA2Config(mu=mu, genome_dim=2, bounds=BOUNDS, n_objectives=3,
+                      reevaluate=0.01)
+    eval_fn = ants_eval_fn(CONFIG, reps)
+    states = []
+    final, wall4, l4 = window("listing4_generational", lambda: (
+        run_generational(cfg, eval_fn, make_generator(0, dev), lam=lam,
+                         generations=gens, hooks=[states.append],
+                         device=dev)))
+    evals = int(final.evaluations)
+    require(evals == mu + lam * gens and int(final.generation) == gens,
+            f"Listing 4: {evals} evaluations after {int(final.generation)} "
+            f"generations")
+    require(final.genomes.shape == (mu, 2) and final.objectives.shape
+            == (mu, 3) and bool(torch.isfinite(final.objectives).all())
+            and bool(((final.genomes >= 0) & (final.genomes <= 99)).all()),
+            "Listing 4: population shapes, finite objectives, genomes in "
+            "bounds")
+    require(l4["diffuse_evaporate"] == (1 + gens) * CONFIG.max_ticks
+            and l4["dominance_pass"] == 2 * gens,
+            f"Listing 4: launches {l4}")
+    emit({"phase": "dsl", "listing": 4, "config": "CONFIG", "mu": mu,
+          "lam": lam, "replicates": reps, "generations": gens,
+          "reevaluate": 0.01, "evaluations": evals, "wall_s": wall4,
+          "evaluations_per_hour": evals / wall4 * 3600,
+          "launches": by_listing["listing4_generational"],
+          "front_size": int((nsga2.nondominated_ranks(
+              final.objectives, final.valid) == 0).sum())})
+
+    # -- Listing 5 ---------------------------------------------------------
+    kept = {}
+
+    def island_fn(seed):
+        state = run_islands(cfg, eval_fn, make_generator(int(seed), dev),
+                            n_islands=4, lam=lam, steps_per_epoch=1,
+                            epochs=2, archive_size=128, device=dev)
+        kept["state"] = state
+        a = state.archive
+        return {"generation": state.epoch, "genomes": a.genomes[a.valid],
+                "objectives": a.objectives[a.valid]}
+
+    island = TorchTask("island", island_fn, inputs=(seed,),
+                       outputs=(Val("generation"), Val("genomes"),
+                                Val("objectives")), defaults={"seed": 0},
+                       device=dev)
+    with tempfile.TemporaryDirectory() as out:
+        res, wall5, l5 = window("listing5", lambda: puzzle(
+            Capsule(island).on(LocalEnvironment())
+            .hook(SavePopulationHook(out))).run())
+        latest = json.loads((Path(out) / "latest.json").read_text())
+        with open(latest["path"], newline="") as f:
+            rows = list(csv.reader(f))
+    state = kept["state"]
+    a = state.archive
+    saved = np.array(rows[1:], dtype=np.float32)
+    expect = torch.cat([a.genomes, a.objectives], 1)[a.valid].cpu().numpy()
+    require(rows[0] == ["g0", "g1", "o0", "o1", "o2"]
+            and latest["generation"] == 2 == state.epoch
+            and np.array_equal(saved, expect) and len(saved) > 0,
+            "Listing 5: the saved population differs from the archive")
+    require(state.total_evaluations == 4 * (mu + 2 * lam)
+            and l5["diffuse_evaporate"] == 3 * CONFIG.max_ticks
+            and l5["dominance_pass"] > 0, f"Listing 5: {l5}")
+    emit({"phase": "dsl", "listing": 5, "config": "CONFIG", "islands": 4,
+          "mu": mu, "lam": lam, "steps_per_epoch": 1, "epochs": 2,
+          "replicates": reps, "evaluations": state.total_evaluations,
+          "archive_rows_saved": len(saved), "saved_equals_archive": True,
+          "wall_s": wall5, "launches": by_listing["listing5"]})
+
+    # -- the kernels at the Listings' shapes ---------------------------------
+    gen = make_generator(1, dev)
+    for n in (1, mu * reps, 4 * lam * reps):
+        chem = torch.rand((n, 72, 72), generator=gen, device=dev) * 100.0
+        rate = torch.rand((n,), generator=gen, device=dev)
+        evap = torch.rand((n,), generator=gen, device=dev) * 0.5
+        require(torch.equal(diffusion.diffuse_evaporate(chem, rate, evap),
+                            ref.diffuse_evaporate_ref(chem, rate, evap)),
+                f"diffuse_evaporate bitwise at the Listings' {n} lanes")
+    pools = {"listing4_pool": (torch.cat([states[-2].objectives,
+                                          final.objectives]), 1),
+             "listing5_islands": (state.islands.objectives.reshape(-1, 3),
+                                  4),
+             "listing5_archive": (a.objectives, 0)}
+    # the same shapes and groupings on seeded objectives: first-empty ticks
+    # in [0, 1000] (many ties) with a quarter of the rows at +BIG, the
+    # value ranking gives empty slots
+    for name, (rows_, n_groups) in list(pools.items()):
+        n = len(rows_)
+        rand = torch.randint(0, 1001, (n, 3), generator=gen,
+                             device=dev).to(torch.float32)
+        rand[torch.randperm(n, generator=gen, device=dev)[:n // 4]] = \
+            nsga2.BIG
+        pools[f"{name}_seeded"] = (rand, n_groups)
+    counts = {}
+    for name, (rows_, n_groups) in pools.items():
+        groups = nsga2.island_groups(n_groups, len(rows_) // n_groups, dev) \
+            if n_groups else None
+        kc, kb = dominance.dominance_pass(rows_, groups=groups)
+        pc, pb = ref.dominance_pass_ref(rows_, groups=groups)
+        require(torch.equal(kc, pc) and torch.equal(kb, pb),
+                f"dominance_pass equal on {name}")
+        counts[name] = {"rows": len(rows_), "groups": n_groups,
+                        "dominated_rows": int((pc > 0).sum()),
+                        "bitmap_bits": int(sum(bin(w & 0xFFFFFFFF).count("1")
+                                               for w in pb.flatten()
+                                               .tolist()))}
+    for name in ("listing4_pool", "listing5_islands", "listing5_archive"):
+        require(counts[f"{name}_seeded"]["dominated_rows"] > 0,
+                f"dominance_pass: no row dominated in {name}_seeded")
+    emit({"phase": "dsl", "what": "kernels_at_dsl_shapes",
+          "diffuse_evaporate_lanes": [1, mu * reps, 4 * lam * reps],
+          "diffuse_bitwise": True, "dominance_pass": counts,
+          "dominance_equal": True})
+    emit({"phase": "dsl", "seconds": time.monotonic() - t_phase,
+          "launches_by_listing": by_listing, "launches": total})
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1861,14 +2205,19 @@ def main() -> int:
 
     stamp()
 
-    # -- 11. the kernels line, the card, the contract line -------------------
+    # -- 11. the paper's Listings 2-5 through the port's DSL -----------------
+    dsl_launches = dsl_phase(torch, dev)
+
+    stamp()
+
+    # -- 12. the kernels line, the card, the contract line -------------------
     # (kernel, result key, source, TPU kernel, the path whose run gives the
     # launches); every path's counts are listed beside it
     by_path = {"ranking": rank_launches,
                "calibrate": cal_launches, "init": init_launches,
                "surrogate": sur_launches,
                "surrogate_big": big_launches, "gp_chol": gp_launches,
-               "flash": flash_launches}
+               "flash": flash_launches, "dsl": dsl_launches}
     rows = (
         ("diffuse_evaporate", ("diffuse_evaporate", 640), "diffusion.cu",
          "src/repro/kernels/diffusion.py:89", "calibrate"),

@@ -1,7 +1,20 @@
-from repro_torch.core.prototype import Context  # noqa
-from repro_torch.core.hook import Hook, SavePopulationHook  # noqa
-from repro_torch.core.prototype import Val  # noqa
-from repro_torch.core.task import PyTask, Task, TaskError  # noqa
-from repro_torch.core.faults import FaultSpec  # noqa
+"""The paper's primary contribution: a workflow engine for distributed model
+exploration — tasks, dataflow, hooks, environments, and the DSL. Ported from
+``repro.core``, as far as the port has come (no mesh or device-set
+environments, no task queue or service yet)."""
+from repro_torch.core.prototype import Val, Context  # noqa
+from repro_torch.core.task import Task, PyTask, TorchTask, TaskError  # noqa
+from repro_torch.core.workflow import Capsule, Workflow, Transition  # noqa
+from repro_torch.core.hook import (Hook, ToStringHook, DisplayHook,  # noqa
+                                   CSVHook, SavePopulationHook,
+                                   CheckpointHook)
+from repro_torch.core.source import (Source, ConstantSource,  # noqa
+                                     CSVSource, FunctionSource)
 from repro_torch.core.environment import Environment, LocalEnvironment  # noqa
-from repro_torch.core.envpool import EnvironmentPool  # noqa
+from repro_torch.core.envpool import EnvironmentPool, PoolStats  # noqa
+from repro_torch.core.faults import (FaultSpec, InjectedFailure,  # noqa
+                                     ResultCorruption)
+from repro_torch.core.cache import (TaskCache, DEFAULT_CACHE,  # noqa
+                                    fingerprint_task, inputs_digest)
+from repro_torch.core.scheduler import RunRecord, TaskRecord  # noqa
+from repro_torch.core.dsl import Puzzle, puzzle, explore, aggregate  # noqa

@@ -8,8 +8,9 @@ the attempt's thread, on the caller's CUDA device.
 
 GridScale's over-submission trick (submit a job to several queues, keep the
 first result) survives as ``speculative`` execution for host-side PyTasks;
-retries with backoff handle transient failures. The mesh- and device-set
-members of the reference are not ported yet.
+retries with backoff handle transient failures; ``map_explore`` runs an
+exploration fan-out. The mesh- and device-set members of the reference are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import concurrent.futures as cf
 import dataclasses
 import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.faults import (FaultSpec, InjectedFailure, ResultCorruption,
                                corrupt_output, interruptible_sleep)
@@ -381,6 +382,17 @@ class Environment:
                 err = e
         raise RuntimeError(f"all speculative copies of {task.name} failed") \
             from err
+
+    # -- exploration fan-outs ------------------------------------------------
+    def map_explore(self, task: Task, contexts: Sequence[Context]
+                    ) -> List[Context]:
+        """Run one task over many contexts (an exploration fan-out).
+
+        Returns a list of output Contexts in the same order. The base
+        environment runs them one by one, one submit per context, as the
+        reference's does; an ``EnvironmentPool`` deals them out as lanes.
+        """
+        return [self.submit(task, c) for c in contexts]
 
     def jit(self, fn, **kw):
         """The identity: PyTorch runs eagerly, so there is nothing to

@@ -1,6 +1,10 @@
 from repro_torch.evolution.nsga2 import NSGA2Config  # noqa
 from repro_torch.evolution import ga  # noqa
-from repro_torch.evolution.ga import GAState  # noqa
+from repro_torch.evolution.ga import (GAState, StreamingResult,  # noqa
+                                      evaluate_population_streaming,
+                                      init_state, init_state_from_population,
+                                      make_step, run_generational,
+                                      select_top_streaming)
 from repro_torch.evolution.island import (IslandState,  # noqa
                                           host_snapshot,
                                           init_island_state, make_epoch,

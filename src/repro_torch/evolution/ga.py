@@ -13,6 +13,11 @@ The streaming init (``evaluate_population_streaming``) evaluates a
 paper-scale initial population in chunks, each a pure job of (seed, chunk)
 that an EnvironmentPool may run anywhere and retry, and
 ``select_top_streaming`` picks the islands' seeds from it block by block.
+
+``run_generational`` (paper Listing 4) runs one island and returns the
+reference's un-islanded shapes. The reference's ``run_chunked`` scans
+``chunk`` generations into one device program; eagerly that is
+``run_generational`` itself, so the port has no counterpart.
 """
 from __future__ import annotations
 
@@ -107,6 +112,32 @@ def make_step(cfg: NSGA2Config, eval_fn: Callable, lam: int) -> Callable:
         )
 
     return step
+
+
+def _one_island(state: GAState) -> GAState:
+    """The reference's un-islanded state of a one-island run: genomes
+    (mu, D), objectives (mu, M), valid (mu,), generation and evaluations
+    0-d."""
+    return GAState(*(t[0] for t in state))
+
+
+def run_generational(cfg: NSGA2Config, eval_fn: Callable,
+                     generator: torch.Generator, *, lam: int,
+                     generations: int, hooks=(), device="cuda") -> GAState:
+    """Paper Listing 4: GenerationalGA(evolution)(fitness, lambda) on
+    ``device`` (the card unless the caller asks for the CPU): ``mu``
+    random genomes evaluated, then ``generations`` (mu + lam) NSGA-II
+    steps, each hook called with the state after each. Returns the
+    reference's un-islanded state (genomes (mu, D), objectives (mu, M));
+    ``evaluations`` counts mu + lam per generation."""
+    state = init_state(cfg, generator, n_islands=1, device=device)
+    state = evaluate_initial(cfg, state, eval_fn, generator)
+    step = make_step(cfg, eval_fn, lam)
+    for _ in range(generations):
+        state = step(state, generator)
+        for hook in hooks:
+            hook(_one_island(state))
+    return _one_island(state)
 
 
 # ---------------------------------------------------------------------------

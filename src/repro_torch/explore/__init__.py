@@ -1,1 +1,8 @@
-from repro_torch.explore.replication import median, replicated_batch  # noqa
+from repro_torch.explore.sampling import (Sampling, GridSampling,  # noqa
+                                          UniformSampling, LHSSampling,
+                                          SobolSampling, SeedSampling,
+                                          CrossSampling)
+from repro_torch.explore.statistics import (StatisticTask, median,  # noqa
+                                            mean, std, q)
+from repro_torch.explore.replication import (Replicate, replicated,  # noqa
+                                             replicated_batch)

@@ -705,3 +705,55 @@ def test_streaming_init_on_cuda_inline_equals_the_faulty_pool(cuda):
                                            pooled.objectives, 16,
                                            device=cuda)
     assert top_g.device.type == "cuda" and top_o.shape == (16, 3)
+
+
+def test_listing3_on_cuda_serial_async_and_cached_bitwise(cuda):
+    """Paper Listing 3 through the port's DSL on the card, on REDUCED's
+    world cut to 60 ticks with sources of radius 1 and 256 ants (the first
+    source empties within the horizon): the model task builds its generator
+    from its seed, so the serial, async and cached runs give the same five
+    runs bit for bit, and the cached run launches no diffusion kernel."""
+    import dataclasses
+
+    from repro_torch.ants import simulate
+    from repro_torch.configs.ants_netlogo import REDUCED
+    from repro_torch.core import (Capsule, PyTask, TaskCache, TorchTask, Val,
+                                  aggregate, explore, puzzle)
+    from repro_torch.explore import SeedSampling, StatisticTask, median
+    from repro_torch.runtime.device import make_generator
+    seed, food, med = Val("seed", int), Val("food1", float), Val("med1",
+                                                                   float)
+
+    cfg = dataclasses.replace(REDUCED, max_ticks=60, food_radius=1.0,
+                              population=256)
+
+    def ants_fn(seed):
+        return simulate(cfg, 50.0, 10.0, device=cuda,
+                        generator=make_generator(int(seed), cuda))[0]
+
+    def run(**kw):
+        model = Capsule(TorchTask("ants", ants_fn, inputs=(seed,),
+                                  outputs=(food,)))
+        stat = Capsule(StatisticTask("stat", [(food, med, median)]))
+        res = (puzzle(Capsule(PyTask("head", lambda ctx: {})))
+               >> explore(SeedSampling(seed, 5, seed=7)) >> model
+               >> aggregate() >> stat).run(**kw)
+        return res[stat][0]
+
+    cache = TaskCache()
+    ops.reset_kernel_launch_counts()
+    serial = run(scheduler="serial")
+    assert ops.kernel_launch_counts()["diffuse_evaporate"] == \
+        5 * cfg.max_ticks
+    runs = [serial, run(scheduler="async"), run(cache=cache)]
+    ops.reset_kernel_launch_counts()
+    runs.append(run(cache=cache))
+    assert ops.kernel_launch_counts()["diffuse_evaporate"] == 0
+    for r in runs:
+        assert r["food1"].device.type == "cuda"
+        assert torch.equal(r["food1"], serial["food1"])
+        assert torch.equal(r["med1"], serial["med1"])
+    # a tensor input reaches the task's function on the task's device
+    where = TorchTask("where", lambda x: x.device.type, inputs=(Val("x"),),
+                      outputs=(Val("d"),))
+    assert where.run({"x": torch.ones(2)})["d"] == "cuda"

@@ -5,8 +5,8 @@ surrogate-assisted calibration of the ants model at the paper's full model
 size, the surrogate's archive-scale fit at 50,000 points, the streaming
 init through the fault-tolerant pool seeding a pipelined island run, the
 GP factorization sweep, flash attention at smollm-135m's full width and the
-paper's Listings 2-5 through the workflow DSL, and prints one JSON object
-per line.
+paper's Listings 2-5 through the workflow DSL, and the island run over
+two ranks, and prints one JSON object per line.
 
     python3 chip_smoke.py
 
@@ -125,7 +125,17 @@ Phases (any failure exits non-zero):
               also on seeded objectives with ties and +BIG rows, launch
               counts read around each Listing (the "dsl" path of the
               kernels line; see dsl_phase).
- 12. the kernels line, the card's name and power limit, and the last line
+ 12. mesh     several ranks on the one card: two spawned processes joined
+              by gloo, both on cuda:0, run the row-sharded dominance sweep
+              at three shapes (8192 x 3; the archive merge's 320-row pool;
+              997 rows in 3 groups, padded) equal to the single pass and
+              its plain version, each rank's rectangular launch against its
+              plain version and timed, and calibrate over a data=2 mesh
+              bitwise equal to phase calibrate's one-rank run; then the
+              streaming init through make_init_pool(0.35, pool_devices=1),
+              bitwise equal to phase init's inline leg (see mesh_phase; its
+              launches are the "mesh" path of the kernels line).
+ 13. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -832,7 +842,7 @@ def init_phase(torch, dev, gen) -> tuple:
     and read just after: evaluations 14336 + 8 * 2 * 4 * 16, a finite,
     in-bounds, mutually non-dominated front with ``front["init"]``, one
     ``diffuse_evaporate`` launch a tick of every chunk and every step.
-    Returns the launch counts of that run."""
+    Returns the launch counts of that run and leg (a)'s result."""
     import numpy as np
 
     from repro_torch.configs.ants_netlogo import CONFIG
@@ -1000,7 +1010,7 @@ def init_phase(torch, dev, gen) -> tuple:
           "evaluations": evals, "evaluations_per_hour": evals / wall * 3600,
           "init": front["init"], "front_size": len(fobj),
           "launches": launches})
-    return launches
+    return launches, a
 
 
 def dsl_phase(torch, dev) -> dict:
@@ -1329,6 +1339,270 @@ def dsl_phase(torch, dev) -> dict:
           "dominance_equal": True})
     emit({"phase": "dsl", "seconds": time.monotonic() - t_phase,
           "launches_by_listing": by_listing, "launches": total})
+    return total
+
+
+# the island run of phases calibrate and mesh: the reference's defaults cut
+# to 2 epochs
+CAL_FLAGS = dict(n_islands=8, mu=16, lam=16, steps_per_epoch=4, epochs=2,
+                 replicates=5, archive_size=256, merge_top_k=8)
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 300
+
+
+def mesh_rank(argv) -> int:
+    """One rank of phase ``mesh``, as ``chip_smoke.py --mesh-rank RANK WORLD
+    STORE OUT``: joins a gloo process group through a FileStore at STORE,
+    runs (a) the sharded dominance sweep at three shapes and (b) the island
+    calibration over a ``data=WORLD`` mesh, writes OUT/rank{RANK}.json
+    (checks, times, launches, walls) and .pt (the final archive and front),
+    and prints nothing of the contract."""
+    import datetime
+    import functools
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.evolution import nsga2
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import explore
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.runtime import sharding
+
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    mesh = tmesh.make_island_mesh(data=world, device="cuda")
+    dev = mesh.device
+    require(mesh.shape == {"data": world} and mesh.rank == rank
+            and dev.type == "cuda", f"mesh {mesh}")
+    sweep = functools.partial(sharding.sharded_dominance_pass, mesh=mesh)
+    result = {"rank": rank, "device": str(dev), "sweep": []}
+
+    # (a) the sharded sweep: the same seeded inputs on every rank
+    gen = torch.Generator(device=dev).manual_seed(22)
+    ticks = torch.randint(0, 1001, (320, 3), generator=gen,
+                          device=dev).to(torch.float32)
+    ticks[:256:2] = nsga2.BIG        # the archive's empty slots
+    shapes = (
+        ("section_4_5", torch.rand((8192, 3), generator=gen, device=dev),
+         None),
+        ("archive_merge_pool", ticks, None),
+        ("padded_3_groups", torch.rand((997, 3), generator=gen, device=dev),
+         torch.arange(997, device=dev, dtype=torch.int32) % 3))
+    for name, f, g in shapes:
+        n = len(f)
+        counts, block = sweep(f, groups=g)
+        one_c, one_b = ops.dominance_pass(f, groups=g)
+        ref_c, ref_b = ref.dominance_pass_ref(f, groups=g)
+        rows = block.words
+        require(isinstance(block, sharding.RowBlock), f"{name}: not sharded")
+        require(torch.equal(counts, one_c) and torch.equal(counts, ref_c),
+                f"{name}: sharded counts")
+        require(torch.equal(rows, one_b[block.row0:block.row0 + len(rows)])
+                and torch.equal(rows, ref_b[block.row0:
+                                            block.row0 + len(rows)]),
+                f"{name}: sharded bitmap rows")
+        ranks = nsga2.nondominated_ranks(f, groups=g, pass_fn=sweep)
+        require(torch.equal(ranks, nsga2.nondominated_ranks(f, groups=g)),
+                f"{name}: ranks through the sharded sweep")
+        # this rank's rectangular launch: its padded block of rows against
+        # every padded row, held to the plain version at that shape
+        n_p = -(-n // (world * 32)) * (world * 32)
+        b = n_p // world
+        gp = torch.zeros((n,), dtype=torch.int32, device=dev) \
+            if g is None else g
+        fp = torch.cat([f, f.new_full((n_p - n, 3), sharding.BIG)])
+        gp = torch.cat([gp, gp.new_full((n_p - n,), -1)])
+        r0 = rank * b
+        args = (fp[r0:r0 + b], fp, gp[r0:r0 + b], gp)
+        kc, kb = ops.dominance_pass(*args)
+        pc, pb = ref.dominance_pass_ref(*args)
+        require(torch.equal(kc, pc) and torch.equal(kb, pb),
+                f"{name}: the block's launch against its plain version")
+        # the pairs this run's data needs: same-group pairs
+        gr = torch.bincount(gp[r0:r0 + b] + 1, minlength=4)
+        gc = torch.bincount(gp + 1, minlength=4)
+        pairs = int((gr * gc).sum())
+        words = n_p // 32
+        n_bytes = (b + n_p) * 3 * 4 + (b + n_p) * 4 + b * 4 + b * words * 4
+        b_ms, b_by = bound_ms(n_bytes, pairs * 2 * 3)
+        # one rank times at a time: the card is shared
+        timing = {}
+        for r in range(world):
+            if r == rank:
+                kt, _ = turns_ms(torch, lambda: ops.dominance_pass(*args),
+                                 None, inner=10, hold_cycles=HOLD_CYCLES)
+                pt, _ = turns_ms(torch,
+                                 lambda: ref.dominance_pass_ref(*args),
+                                 None, reps=5, inner=3)
+                timing = {"ms": kt["median"],
+                          "ms_min_max": [kt["min"], kt["max"]],
+                          "plain_ms": pt["median"]}
+            dist.barrier()
+        result["sweep"].append({
+            "shape": name, "n": n, "grouped": g is not None,
+            "padded_rows": n_p, "block": [r0, b], "kept_rows": len(rows),
+            "block_shape": [b, n_p, 3], "pairs": pairs,
+            "counts_equal": True, "bitmap_rows_equal": True,
+            "ranks_equal": True, "fronts": int(ranks.max()) + 1,
+            "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+            **timing})
+
+    # (b) the island calibration over the mesh, counts from 0 just before
+    with tempfile.TemporaryDirectory() as run_dir:
+        dist.barrier()
+        ops.reset_kernel_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, front = explore.calibrate(
+            reduced=False, out_dir=run_dir, device="cuda", mesh=mesh,
+            printer=lambda s: None, **CAL_FLAGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.kernel_launch_counts()
+        files = sorted(p.name for p in Path(run_dir).iterdir())
+    result.update(calibrate_wall_s=wall, launches=launches, files=files,
+                  evaluations=state.total_evaluations)
+    torch.save({"archive": [t.cpu() for t in state.archive],
+                "front": front}, Path(out) / f"rank{rank}.pt")
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(torch, dev, one_rank, init_inline) -> dict:
+    """Phase ``mesh``: several ranks, on the one card. Two ranks, spawned
+    processes joined by gloo, both on cuda:0 (NCCL refuses two ranks on one
+    device; one rank per card over NCCL needs several cards), run
+    ``mesh_rank``: (a) ``sharded_dominance_pass`` at the section 4.5 shape
+    (8192 x 3 uniform), the archive merge's pool at the paper's defaults
+    (256 + 8 x 8 = 320 rows, half the archive's slots +BIG) and 997 rows
+    in 3 groups (padded to 1024): counts and bitmap rows equal to the
+    single ``dominance_pass`` and to ``dominance_pass_ref``, the ranks
+    through the sharded sweep equal to the one-rank ranks, and each rank's
+    rectangular launch (its block of padded rows against every padded row)
+    equal to its plain version and timed; (b) ``explore.calibrate`` at
+    CONFIG with the calibrate phase's flags over a ``data=2`` mesh: its
+    archive (genomes, objectives, valid), evaluations and front equal bit
+    for bit to ``one_rank`` (phase calibrate's (state, front, wall)), its
+    launches counted from 0 in each rank. (c) The streaming init's fourth
+    leg, through ``make_init_pool(0.35, pool_devices=1)`` (one
+    DeviceEnvironment of the card), bitwise equal to ``init_inline``
+    (phase init's inline leg). Every child is joined under a timeout; a
+    child that fails fails the phase. Returns the launches of (b), summed
+    over the ranks (the "mesh" path of the kernels line)."""
+    import numpy as np
+
+    from repro_torch.configs.ants_netlogo import CONFIG
+    from repro_torch.evolution import ga
+    from repro_torch.launch import explore
+
+    t_phase = time.monotonic()
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(Path(tmp) / f"rank{r}.log", "w")
+                for r in range(MESH_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+             str(r), str(MESH_RANKS), str(Path(tmp) / "store"), tmp],
+            stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT)
+            for r in range(MESH_RANKS)]
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                print((Path(tmp) / f"rank{r}.log").read_text()[-4000:],
+                      file=sys.stderr)
+            require(p.returncode == 0,
+                    f"mesh rank {r} exited {p.returncode}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+        saved = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(MESH_RANKS)]
+    spawn_s = time.monotonic() - t_phase
+
+    state, front, wall = one_rank
+    for r, (res, got) in enumerate(zip(ranks, saved)):
+        for name, a, b in zip(("genomes", "objectives", "valid"),
+                              got["archive"], state.archive):
+            require(torch.equal(a, b.cpu()),
+                    f"mesh rank {r}: archive {name} differs from one rank")
+        require(got["front"]["evaluations"] == front["evaluations"]
+                == res["evaluations"]
+                and got["front"]["genomes"] == front["genomes"]
+                and got["front"]["objectives"] == front["objectives"],
+                f"mesh rank {r}: front differs from one rank")
+        require(res["launches"]["dominance_pass"] > 0
+                and res["launches"]["diffuse_evaporate"] > 0,
+                f"mesh rank {r}: launches {res['launches']}")
+    # rank 0 alone writes the run's files
+    require({"pareto_front.json", "provenance.json", "populations",
+             "checkpoints"} <= set(ranks[0]["files"]),
+            f"mesh rank 0 outputs {ranks[0]['files']}")
+    n_sims = 1 + CAL_FLAGS["epochs"] * CAL_FLAGS["steps_per_epoch"]
+    b1 = [res["launches"]["diffuse_evaporate"] for res in ranks]
+    require(b1 == [n_sims * CONFIG.max_ticks] * MESH_RANKS,
+            f"mesh: diffuse_evaporate launches {b1}")
+    for r, res in enumerate(ranks):
+        for row in res["sweep"]:
+            emit({"phase": "mesh", "what": "sharded_sweep", "rank": r,
+                  **row})
+    emit({"phase": "mesh", "what": "calibrate", "config": "CONFIG",
+          **CAL_FLAGS, "mesh": {"data": MESH_RANKS},
+          "backend": "gloo", "ranks_on": [res["device"] for res in ranks],
+          "one_rank_wall_s": wall,
+          "rank_walls_s": [res["calibrate_wall_s"] for res in ranks],
+          "equal_to_one_rank": True,
+          "rank_launches": {
+              r: {k: res["launches"][k] for k in ("diffuse_evaporate",
+                                                   "dominance_pass")}
+              for r, res in enumerate(ranks)},
+          "spawn_to_results_s": spawn_s})
+
+    # (c) the streaming init through a device-set member of the card
+    cfg = explore.NSGA2Config(mu=16, genome_dim=2, bounds=explore.BOUNDS)
+    pool = explore.make_init_pool(0.35, pool_devices=1)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = ga.evaluate_population_streaming(
+            cfg, explore.ants_eval_fn(CONFIG, 5), 0, n_total=14336,
+            chunk=4096, device=torch.device("cuda"), environment=pool)
+        torch.cuda.synchronize()
+        wall_d = time.perf_counter() - t0
+        members = [m.name for m in pool.members]
+    finally:
+        pool.shutdown()
+    require(np.array_equal(d.objectives, init_inline.objectives)
+            and np.array_equal(d.genomes, init_inline.genomes),
+            "init leg (d), pool_devices=1, differs from the inline leg")
+    require(d.attempts > d.chunks_total,
+            f"init leg (d): {d.attempts} attempts for {d.chunks_total} "
+            f"chunks at 35 % failures")
+    emit({"phase": "mesh", "what": "init_pool_devices", "leg": "d",
+          "members": members, "n_total": 14336, "chunk": 4096,
+          "attempts": d.attempts, "chunks": d.chunks_total, "wall_s": wall_d,
+          "evaluations_per_hour": 14336 / wall_d * 3600,
+          "equal_to_inline": True})
+    emit({"phase": "mesh", "seconds": time.monotonic() - t_phase})
+    total = {}
+    for res in ranks:
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
     return total
 
 
@@ -1861,8 +2135,7 @@ def main() -> int:
     stamp()
 
     # -- 4. the main path: calibrate at the paper's model size ---------------
-    flags = dict(n_islands=8, mu=16, lam=16, steps_per_epoch=4, epochs=2,
-                 replicates=5, archive_size=256, merge_top_k=8)
+    flags = CAL_FLAGS
     with tempfile.TemporaryDirectory() as out:
         ops.reset_kernel_launch_counts()
         torch.cuda.synchronize()
@@ -1906,6 +2179,7 @@ def main() -> int:
           "profile_20_ticks_640_lanes": cal_busy})
 
     cal_launches = launches
+    one_rank = (state, front, wall)
 
     stamp()
 
@@ -2114,7 +2388,7 @@ def main() -> int:
     stamp()
 
     # -- 8. the streaming init through the pool, seeding a pipelined run -----
-    init_launches = init_phase(torch, dev, gen)
+    init_launches, init_inline = init_phase(torch, dev, gen)
 
     stamp()
 
@@ -2210,14 +2484,21 @@ def main() -> int:
 
     stamp()
 
-    # -- 12. the kernels line, the card, the contract line -------------------
+    # -- 12. several ranks on the card: the sharded sweep, the island mesh,
+    # the device-set pool member
+    mesh_launches = mesh_phase(torch, dev, one_rank, init_inline)
+
+    stamp()
+
+    # -- 13. the kernels line, the card, the contract line -------------------
     # (kernel, result key, source, TPU kernel, the path whose run gives the
     # launches); every path's counts are listed beside it
     by_path = {"ranking": rank_launches,
                "calibrate": cal_launches, "init": init_launches,
                "surrogate": sur_launches,
                "surrogate_big": big_launches, "gp_chol": gp_launches,
-               "flash": flash_launches, "dsl": dsl_launches}
+               "flash": flash_launches, "dsl": dsl_launches,
+               "mesh": mesh_launches}
     rows = (
         ("diffuse_evaporate", ("diffuse_evaporate", 640), "diffusion.cu",
          "src/repro/kernels/diffusion.py:89", "calibrate"),
@@ -2278,4 +2559,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2:]))
     sys.exit(main())

@@ -170,24 +170,37 @@ def make_step(cfg: AntsConfig, device=None):
 
 def simulate_batch(cfg: AntsConfig, diffusion_rates, evaporation_rates, *,
                    generator: torch.Generator = None,
-                   noise: torch.Tensor = None) -> torch.Tensor:
+                   noise: torch.Tensor = None, rows=None) -> torch.Tensor:
     """diffusion/evaporation rates: (N,) NetLogo percentages in [0, 99], on
     the device to simulate on. Gumbel noise comes from ``generator`` one
     (N, P, 8) tick at a time, or from ``noise`` (max_ticks, N, P, 8).
+    ``rows`` (a ``ga.Rows``, with ``generator``): these N lanes are lanes
+    ``rows.start .. rows.stop`` of a batch of ``rows.total``; each tick
+    draws the whole batch's noise and keeps theirs, so every lane sees the
+    numbers it would in the whole batch.
     Returns (N, 3) f32 objectives (first-empty ticks, lower = better)."""
     if (generator is None) == (noise is None):
         raise ValueError("pass exactly one of generator= or noise=")
     device = diffusion_rates.device
     n = diffusion_rates.shape[0]
+    shape = (n if rows is None else rows.total, cfg.population, 8)
+    if rows is not None:
+        if noise is not None or rows.stop - rows.start != n:
+            raise ValueError(f"rows={rows} needs generator= and {n} lanes")
+        if n == 0:      # the draws of the other lanes, nothing to simulate
+            for _ in range(cfg.max_ticks):
+                draw_gumbel(generator, shape, device)
+            return torch.zeros((0, 3), dtype=torch.float32, device=device)
     diffusion = (diffusion_rates.to(torch.float32) / 100.0).clamp(0.0, 1.0)
     evaporation = (evaporation_rates.to(torch.float32) / 100.0).clamp(0.0,
                                                                      1.0)
     state = init_state(cfg, n, device)
     step = make_step(cfg, device)
-    shape = (n, cfg.population, 8)
     for tick in range(cfg.max_ticks):
         gumbel = noise[tick] if noise is not None else draw_gumbel(
             generator, shape, device)
+        if rows is not None:
+            gumbel = rows.take(gumbel)
         state = step(state, tick, diffusion, evaporation, gumbel)
     return state.ticks_empty.to(torch.float32)
 

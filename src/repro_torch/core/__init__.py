@@ -1,7 +1,7 @@
 """The paper's primary contribution: a workflow engine for distributed model
 exploration — tasks, dataflow, hooks, environments, and the DSL. Ported from
-``repro.core``, as far as the port has come (no mesh or device-set
-environments, no task queue or service yet)."""
+``repro.core``, as far as the port has come (no mesh environment, no task
+queue or service yet)."""
 from repro_torch.core.prototype import Val, Context  # noqa
 from repro_torch.core.task import Task, PyTask, TorchTask, TaskError  # noqa
 from repro_torch.core.workflow import Capsule, Workflow, Transition  # noqa
@@ -10,7 +10,11 @@ from repro_torch.core.hook import (Hook, ToStringHook, DisplayHook,  # noqa
                                    CheckpointHook)
 from repro_torch.core.source import (Source, ConstantSource,  # noqa
                                      CSVSource, FunctionSource)
-from repro_torch.core.environment import Environment, LocalEnvironment  # noqa
+from repro_torch.core.environment import (Environment,  # noqa
+                                          LocalEnvironment,
+                                          DeviceEnvironment,
+                                          make_device_members,
+                                          pinned_device)
 from repro_torch.core.envpool import EnvironmentPool, PoolStats  # noqa
 from repro_torch.core.faults import (FaultSpec, InjectedFailure,  # noqa
                                      ResultCorruption)

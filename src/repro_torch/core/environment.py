@@ -9,16 +9,21 @@ the attempt's thread, on the caller's CUDA device.
 GridScale's over-submission trick (submit a job to several queues, keep the
 first result) survives as ``speculative`` execution for host-side PyTasks;
 retries with backoff handle transient failures; ``map_explore`` runs an
-exploration fan-out. The mesh- and device-set members of the reference are
-not ported yet.
+exploration fan-out. ``DeviceEnvironment`` is a pool member that owns a
+set of devices and runs each attempt on one of them;
+``make_device_members`` splits the local devices into such members. The
+reference's mesh environment is not ported yet.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import dataclasses
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.core.faults import (FaultSpec, InjectedFailure, ResultCorruption,
                                corrupt_output, interruptible_sleep)
@@ -406,3 +411,151 @@ class Environment:
 
 class LocalEnvironment(Environment):
     pass
+
+
+# ---------------------------------------------------------------------------
+# Device-set pool members
+# ---------------------------------------------------------------------------
+_PINNED = threading.local()
+
+
+def pinned_device() -> Optional[torch.device]:
+    """The device the calling thread's current attempt is pinned to by a
+    ``DeviceEnvironment``, or None outside one."""
+    return getattr(_PINNED, "device", None)
+
+
+@contextlib.contextmanager
+def _pin(device: torch.device):
+    """Run the block on ``device``: it becomes this thread's current CUDA
+    device (CUDA's current device is per thread), so a task that makes its
+    tensors on the bare ``"cuda"`` device makes them there."""
+    before = pinned_device()
+    _PINNED.device = device
+    try:
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                yield
+        else:
+            yield
+    finally:
+        _PINNED.device = before
+
+
+def local_devices(device="cuda") -> List[torch.device]:
+    """Every local device of ``device``'s type: each CUDA card (raises
+    without one), or the CPU."""
+    from repro_torch.runtime.device import resolve_device
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return [torch.device(dev.type)]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+class DeviceEnvironment(Environment):
+    """A pool member that owns a **set of local devices** (ported from the
+    reference's ``DeviceEnvironment``).
+
+    * attempts (``run_attempt``: the streaming init's chunk jobs, the
+      surrogate's evaluation jobs) run with one of the member's devices,
+      picked round-robin under the lock, as the worker thread's current
+      CUDA device. A task that names a fixed device index escapes the pin:
+      tasks make their tensors on the bare ``"cuda"`` device;
+    * batched ``TorchTask`` lanes (``map_explore``) split into contiguous
+      blocks, one per device, when they divide evenly, and otherwise run
+      on one device, round-robin; ``last_lane_devices`` records where.
+
+    Every knob of ``Environment`` applies unchanged. ``capacity`` defaults
+    to ``2 * len(devices)``, so each device keeps one attempt in flight
+    while the next waits.
+    """
+
+    def __init__(self, devices: Sequence[Any], *,
+                 capacity: Optional[int] = None, **kw):
+        devices = tuple(torch.device(d) for d in devices)
+        if not devices:
+            raise ValueError("DeviceEnvironment requires at least one device")
+        kw.setdefault("name", "dev[" + ",".join(map(_device_id, devices))
+                      + "]")
+        super().__init__(capacity=(2 * len(devices) if capacity is None
+                                   else capacity), **kw)
+        self.devices = devices
+        self._rr_cursor = 0
+        self.last_lane_devices: Optional[Tuple[torch.device, ...]] = None
+
+    def _next_device(self) -> torch.device:
+        with self._lock:
+            d = self.devices[self._rr_cursor % len(self.devices)]
+            self._rr_cursor += 1
+        return d
+
+    def run_attempt(self, task: Task, context: Context, *, attempt: int = 0,
+                    job: Optional[str] = None,
+                    wake: Optional[threading.Event] = None
+                    ) -> Tuple[Context, Optional[str]]:
+        with _pin(self._next_device()):
+            return super().run_attempt(task, context, attempt=attempt,
+                                       job=job, wake=wake)
+
+    def map_explore(self, task: Task, contexts: Sequence[Context]
+                    ) -> List[Context]:
+        """``TorchTask`` lanes placed on the member's own devices."""
+        if task.kind != "torch" or not contexts:
+            return super().map_explore(task, contexts)
+        n, devs = len(contexts), self.devices
+        if len(devs) > 1 and n % len(devs) == 0:
+            b = n // len(devs)
+            blocks = [(d, contexts[i * b:(i + 1) * b])
+                      for i, d in enumerate(devs)]
+        else:
+            blocks = [(self._next_device(), list(contexts))]
+        out = []
+        for d, block in blocks:
+            with _pin(d):
+                out.extend(task.run(c) for c in block)
+        self.last_lane_devices = tuple(d for d, _ in blocks)
+        with self._lock:
+            self.stats.submitted += n
+            self.stats.completed += n
+        return out
+
+    def __repr__(self):
+        return (f"DeviceEnvironment(devices=["
+                f"{','.join(map(_device_id, self.devices))}])")
+
+
+def _device_id(d: torch.device) -> str:
+    return str(d.index) if d.index is not None else d.type
+
+
+def make_device_members(devices=None, k: int = 2, *, device="cuda",
+                        **kw) -> List[DeviceEnvironment]:
+    """Split the local devices into ``k`` disjoint ``DeviceEnvironment``
+    pool members, contiguously, the remainder to the earliest members.
+
+    devices: a device sequence, a ``runtime.sharding.Mesh`` (this rank's
+    device), or None for every local device of ``device``'s type
+    (``local_devices``). ``**kw`` goes to every member; ``faults`` may be a
+    callable ``i -> FaultSpec`` for per-member seeds. Members are named
+    ``dev{i}[ids]``."""
+    from repro_torch.runtime.sharding import Mesh
+    if devices is None:
+        devices = local_devices(device)
+    elif isinstance(devices, Mesh):
+        devices = [devices.device]
+    devices = [torch.device(d) for d in devices]
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if k > len(devices):
+        raise ValueError(
+            f"cannot partition {len(devices)} device(s) into {k} members")
+    faults = kw.pop("faults", None)
+    q, r = divmod(len(devices), k)
+    members, start = [], 0
+    for i in range(k):
+        sub = devices[start:start + q + (1 if i < r else 0)]
+        start += len(sub)
+        members.append(DeviceEnvironment(
+            sub, name=f"dev{i}[{','.join(map(_device_id, sub))}]",
+            faults=faults(i) if callable(faults) else faults, **kw))
+    return members

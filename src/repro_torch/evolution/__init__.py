@@ -7,6 +7,7 @@ from repro_torch.evolution.ga import (GAState, StreamingResult,  # noqa
                                       select_top_streaming)
 from repro_torch.evolution.island import (IslandState,  # noqa
                                           host_snapshot,
+                                          place_island_state,
                                           init_island_state, make_epoch,
                                           make_evolve, make_merge,
                                           make_reseed, run_islands,

@@ -3,11 +3,13 @@
 global archive"), ported from ``repro.evolution.archive``."""
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.evolution import nsga2
+from repro_torch.runtime.sharding import sharded_dominance_pass
 
 
 class Archive(NamedTuple):
@@ -26,12 +28,15 @@ def init_archive(size, genome_dim, n_objectives, device=None) -> Archive:
     )
 
 
-def merge(archive: Archive, genomes, objectives, valid=None) -> Archive:
+def merge(archive: Archive, genomes, objectives, valid=None, *,
+          mesh=None) -> Archive:
     """Truncate (archive + incoming) to archive size by (rank, -crowding).
 
-    The pool-wide non-dominated sort is one fused dominance sweep on the
-    card (the reference's mesh-sharded sweep falls back to exactly this
-    launch on one device)."""
+    The pool-wide non-dominated sort, the archive-scale O(pool^2) hot spot,
+    runs through the row-sharded sweep over ``mesh``'s ranks
+    (``sharded_dominance_pass``; every rank calls ``merge`` with the same
+    replicated pool and gets the same archive). Without a mesh, or with one
+    rank, that is one fused dominance sweep."""
     a = archive.genomes.shape[0]
     if valid is None:
         valid = torch.ones((genomes.shape[0],), dtype=torch.bool,
@@ -39,7 +44,9 @@ def merge(archive: Archive, genomes, objectives, valid=None) -> Archive:
     pool_g = torch.cat([archive.genomes, genomes.to(torch.float32)])
     pool_o = torch.cat([archive.objectives, objectives.to(torch.float32)])
     pool_v = torch.cat([archive.valid, valid])
-    ranks = nsga2.nondominated_ranks(pool_o, pool_v)
+    ranks = nsga2.nondominated_ranks(
+        pool_o, pool_v,
+        pass_fn=functools.partial(sharded_dominance_pass, mesh=mesh))
     crowd = nsga2.crowding_distance(pool_o, ranks)
     key_val = nsga2.truncation_key(ranks, crowd, pool_v)
     order = torch.argsort(key_val, stable=True)[:a]

@@ -32,6 +32,32 @@ from repro_torch.evolution.nsga2 import NSGA2Config
 from repro_torch.runtime.device import make_generator, resolve_device
 
 
+class Rows(NamedTuple):
+    """Rows ``start .. stop`` of a batch of ``total`` rows: the part a rank
+    keeps of a draw made at the whole batch's shape. A rank that holds a
+    block of islands draws every random tensor at the single-device run's
+    shape and keeps its rows, so its numbers are that run's, bit for bit."""
+    start: int
+    stop: int
+    total: int
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        return x[self.start:self.stop]
+
+    def times(self, k: int) -> "Rows":
+        """The same rows when each row of the batch becomes ``k`` rows."""
+        return Rows(self.start * k, self.stop * k, self.total * k)
+
+
+def call_eval(eval_fn: Callable, generator, genomes, rows: "Rows" = None):
+    """``eval_fn(generator, genomes)``, or with ``rows=`` when ``genomes``
+    are only ``rows`` of the batch whose draws the generator makes (an
+    ``eval_fn`` used on a block of islands must take ``rows``)."""
+    if rows is None:
+        return eval_fn(generator, genomes)
+    return eval_fn(generator, genomes, rows=rows)
+
+
 class GAState(NamedTuple):
     genomes: torch.Tensor      # (I, mu, D) f32
     objectives: torch.Tensor   # (I, mu, M) f32
@@ -61,17 +87,22 @@ def init_state(cfg: NSGA2Config, generator: torch.Generator, *,
 
 
 def evaluate_initial(cfg: NSGA2Config, state: GAState, eval_fn: Callable,
-                     generator: torch.Generator, islands=None) -> GAState:
+                     generator: torch.Generator, islands=None,
+                     rows: Rows = None) -> GAState:
     """Evaluate the whole population of each island in ``islands`` (a (I,)
-    bool mask; default all) in one ``eval_fn`` call."""
+    bool mask; default all) in one ``eval_fn`` call. ``rows``: where these
+    genomes sit in the whole run's batch of initial evaluations, when the
+    state is one rank's block of islands."""
     n_i, mu, d = state.genomes.shape
     if islands is None:
         islands = torch.ones((n_i,), dtype=torch.bool,
                              device=state.genomes.device)
     idx = islands.nonzero()[:, 0]
-    obj = eval_fn(generator, state.genomes[idx].reshape(-1, d))
+    obj = call_eval(eval_fn, generator,
+                    state.genomes[idx].reshape(-1, d), rows)
     objectives = state.objectives.clone()
-    objectives[idx] = obj.reshape(len(idx), mu, -1).to(torch.float32)
+    objectives[idx] = obj.reshape(len(idx), mu, obj.shape[-1]).to(
+        torch.float32)
     valid = state.valid.clone()
     valid[idx] = True
     return state._replace(objectives=objectives, valid=valid,
@@ -80,10 +111,13 @@ def evaluate_initial(cfg: NSGA2Config, state: GAState, eval_fn: Callable,
 
 
 def make_step(cfg: NSGA2Config, eval_fn: Callable, lam: int) -> Callable:
-    """step(state, generator) -> state: one (mu + lambda) NSGA-II
-    generation on every island."""
+    """step(state, generator, block=None) -> state: one (mu + lambda)
+    NSGA-II generation on every island. ``block`` (islands ``start ..
+    stop`` of ``total``) marks ``state`` as one rank's block: the draws are
+    made for all ``total`` islands and the block's are kept."""
 
-    def step(state: GAState, generator: torch.Generator) -> GAState:
+    def step(state: GAState, generator: torch.Generator,
+             block: Rows = None) -> GAState:
         n_i, mu, d = state.genomes.shape
         m = state.objectives.shape[-1]
         flat_o = state.objectives.reshape(n_i * mu, m)
@@ -92,10 +126,17 @@ def make_step(cfg: NSGA2Config, eval_fn: Callable, lam: int) -> Callable:
                                          groups=groups)
         crowd = nsga2.crowding_distance(flat_o, ranks, groups=groups,
                                         n_groups=n_i)
-        children, _ = nsga2.make_offspring(
-            cfg, generator, state.genomes, ranks.reshape(n_i, mu),
-            crowd.reshape(n_i, mu), lam)
-        child_obj = eval_fn(generator, children.reshape(n_i * lam, d))
+        whole = block.total if block is not None else n_i
+        draws = nsga2.draw_offspring(cfg, generator, mu, lam, (whole,),
+                                     state.genomes.device)
+        if block is not None:
+            draws = nsga2.OffspringDraws(*(block.take(t) for t in draws))
+        children, _ = nsga2.apply_offspring(
+            cfg, draws, state.genomes, ranks.reshape(n_i, mu),
+            crowd.reshape(n_i, mu))
+        child_obj = call_eval(
+            eval_fn, generator, children.reshape(n_i * lam, d),
+            block.times(lam) if block is not None else None)
         pool_g = torch.cat([state.genomes, children], dim=1)
         pool_o = torch.cat([state.objectives,
                             child_obj.reshape(n_i, lam, m)], dim=1)

@@ -21,10 +21,12 @@ import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.runtime.sharding import RowBlock
 
 BIG = 1.0e30
 
@@ -64,7 +66,8 @@ def _pack_bool_words(mask: torch.Tensor, n_words: int) -> torch.Tensor:
 
 def nondominated_ranks(objectives: torch.Tensor,
                        valid: torch.Tensor | None = None,
-                       groups: torch.Tensor | None = None) -> torch.Tensor:
+                       groups: torch.Tensor | None = None,
+                       pass_fn=None) -> torch.Tensor:
     """objectives: (N, M) minimized. Returns (N,) i32 front index (0 =
     Pareto); rows not ``valid`` keep rank N.
 
@@ -74,13 +77,23 @@ def nondominated_ranks(objectives: torch.Tensor,
     ANDed with the packed front mask.
 
     groups: optional (N,) int — dominance only within a group, so many
-    islands' populations rank independently in ONE kernel launch."""
+    islands' populations rank independently in ONE kernel launch.
+    pass_fn: override for the fused sweep, ``pass_fn(objectives,
+    groups=...) -> (counts, bitmap)``, e.g. ``runtime.sharding.
+    sharded_dominance_pass`` bound to a mesh. When its bitmap is a
+    ``RowBlock`` (this rank's rows), each front's decrements of the block
+    go into a zero-padded full vector and one ``all_reduce`` a front makes
+    them whole: every rank then holds the same counts and leaves the loop
+    on the same front."""
     n = objectives.shape[0]
     if valid is None:
         valid = torch.ones((n,), dtype=torch.bool, device=objectives.device)
     obj_masked = torch.where(valid[:, None], objectives, BIG)
-    counts, bitmap = kops.dominance_pass(obj_masked, groups=groups)
-    n_words = bitmap.shape[1]
+    counts, bitmap = (pass_fn or kops.dominance_pass)(obj_masked,
+                                                      groups=groups)
+    block = bitmap if isinstance(bitmap, RowBlock) else None
+    words = block.words if block is not None else bitmap
+    n_words = words.shape[1]
     ranks = torch.full((n,), n, dtype=torch.int32, device=objectives.device)
     active = valid
     r = 0
@@ -88,7 +101,13 @@ def nondominated_ranks(objectives: torch.Tensor,
         front = active & (counts == 0)
         ranks = torch.where(front, r, ranks)
         front_words = _pack_bool_words(front, n_words)
-        counts = counts - kref.popcount_rows(bitmap & front_words[None, :])
+        dec = kref.popcount_rows(words & front_words[None, :])
+        if block is not None:
+            full = torch.zeros((n,), dtype=torch.int32, device=dec.device)
+            full[block.row0:block.row0 + len(dec)] = dec
+            torch.distributed.all_reduce(full, group=block.group)
+            dec = full
+        counts = counts - dec
         active = active & ~front
         r += 1
     return ranks

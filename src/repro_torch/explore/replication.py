@@ -44,12 +44,20 @@ def replicated_batch(batch_eval_fn: Callable, n_replicates: int,
     (L, M)`` to ``(generator, genomes (N, D)) -> (N, M)`` where each genome
     runs ``n_replicates`` times as adjacent lanes of one flat call, reduced
     with ``reducer(objs, dim=1)``. The high-throughput path for the ants
-    simulator."""
+    simulator.
 
-    def replicated_eval(generator, genomes):
+    ``rows`` (a ``ga.Rows``): the genomes are those rows of a larger batch
+    whose draws the generator makes; ``batch_eval_fn`` then gets the same
+    rows of the flat lanes, ``rows.times(n_replicates)``, as ``rows=``."""
+
+    def replicated_eval(generator, genomes, rows=None):
         n = genomes.shape[0]
         flat_genomes = genomes.repeat_interleave(n_replicates, dim=0)
-        objs = batch_eval_fn(generator, flat_genomes)
+        if rows is None:
+            objs = batch_eval_fn(generator, flat_genomes)
+        else:
+            objs = batch_eval_fn(generator, flat_genomes,
+                                 rows=rows.times(n_replicates))
         return reducer(objs.reshape(n, n_replicates, -1), dim=1)
 
     return replicated_eval

@@ -1,5 +1,5 @@
 """The paper-centric entry point, ported from ``repro.launch.explore``:
-calibrate the ants model on one CUDA device with island-model NSGA-II
+calibrate the ants model on CUDA devices with island-model NSGA-II
 (default) or the surrogate-assisted GP ask/tell engine, checkpointed per
 epoch or round (restart-safe).
 
@@ -16,14 +16,27 @@ epoch or round (restart-safe).
         --init-population 200000 --init-chunk 4096 --fault-rate 0.3 \\
         --pipeline --out /tmp/ants_200k     # the paper's 200k init first
 
+    torchrun --nproc-per-node 4 -m repro_torch.launch.explore \\
+        --distributed --mesh data=4 --out /tmp/ants_mesh  # 4 cards, NCCL
+
+    PYTHONPATH=src python -m repro_torch.launch.explore --device cpu \\
+        --reduced --distributed --coordinator 127.0.0.1:29500 \\
+        --num-processes 2 --process-id 0 --mesh data=2 --out /tmp/m &
+    PYTHONPATH=src python -m repro_torch.launch.explore --device cpu \\
+        --reduced --distributed --coordinator 127.0.0.1:29500 \\
+        --num-processes 2 --process-id 1 --mesh data=2 --out /tmp/m
+                                            # two gloo ranks on the CPU
+
 Islands write ``pareto_front.json``, ``provenance.json`` and
 ``populations/`` (and ``init_checkpoints/`` with ``--init-population``);
 the surrogate writes ``surrogate_result.json`` and ``provenance.json``;
-both with the reference's keys. A rerun with the same
+both with the reference's keys; with a mesh of several ranks, rank 0
+alone writes them. A rerun with the same
 ``--out`` resumes from the last committed epoch or round, and refuses to
 when the checkpoint was written by a run of other settings (model config,
-widths, replicates, device). Methods and flags whose machinery is not
-ported yet stop with an error naming them.
+widths, replicates, device; not the mesh, which changes where the work
+runs and not its result). Methods whose machinery is not ported yet stop
+with an error naming them.
 """
 from __future__ import annotations
 
@@ -36,12 +49,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint
 from repro_torch.ants import simulate_batch
 from repro_torch.configs.ants_netlogo import BOUNDS, CONFIG, REDUCED
 from repro_torch.core import (Context, EnvironmentPool, FaultSpec,
-                              LocalEnvironment, SavePopulationHook)
+                              LocalEnvironment, SavePopulationHook,
+                              make_device_members)
 from repro_torch.core.cache import hash_value
 from repro_torch.core.scheduler import RunRecord, TaskRecord, _utcnow
 from repro_torch.evolution import (Archive, NSGA2Config, ga,
@@ -49,32 +64,72 @@ from repro_torch.evolution import (Archive, NSGA2Config, ga,
                                    run_islands)
 from repro_torch.explore import replicated_batch
 from repro_torch.explore.surrogate import SurrogateConfig, run_surrogate
+from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                     make_island_mesh)
 from repro_torch.runtime.device import make_generator, resolve_device
+from repro_torch.runtime.sharding import mesh_group
 
 
 def make_init_pool(fault_rate: float = 0.0, *, workers: int = 3,
                    capacity: int = 2, retries: int = 8,
-                   backoff_s: float = 0.05,
-                   timeout_s: float = None) -> EnvironmentPool:
+                   backoff_s: float = 0.05, timeout_s: float = None,
+                   pool_devices: int = 0, device="cuda") -> EnvironmentPool:
     """The local evaluation pool: a few thread-backed workers, optionally
     with an injected per-attempt failure rate (the paper's unreliable-EGI
-    regime, reproduced on one host). Device-set members
-    (``--pool-devices``) are not ported yet."""
-    envs = [LocalEnvironment(
-        name=f"worker{i}", capacity=capacity, timeout_s=timeout_s,
-        faults=(FaultSpec(fail_rate=fault_rate, seed=i)
-                if fault_rate > 0 else None))
-        for i in range(workers)]
+    regime, reproduced on one host).
+
+    ``pool_devices=k`` makes the members ``k`` ``DeviceEnvironment``s over
+    disjoint sets of the local devices of ``device``'s type (each card, or
+    the CPU), so the init's and the surrogate's jobs spread over the
+    cards; ``workers`` and ``capacity`` are then unused (capacity is two
+    per device)."""
+    faults = ((lambda i: FaultSpec(fail_rate=fault_rate, seed=i))
+              if fault_rate > 0 else lambda i: None)
+    if pool_devices:
+        envs = make_device_members(None, pool_devices, device=device,
+                                   timeout_s=timeout_s, faults=faults)
+    else:
+        envs = [LocalEnvironment(name=f"worker{i}", capacity=capacity,
+                                 timeout_s=timeout_s, faults=faults(i))
+                for i in range(workers)]
     return EnvironmentPool(envs, retries=retries, backoff_s=backoff_s)
 
 
 def ants_eval_fn(ants_cfg, replicates: int):
-    """(generator, genomes (L, 2)) -> (L, 3) replicated-median times to
-    deplete each food source, the paper's three calibration objectives."""
-    return replicated_batch(
-        lambda gen, genomes: simulate_batch(ants_cfg, genomes[:, 0],
-                                            genomes[:, 1], generator=gen),
-        replicates)
+    """(generator, genomes (L, 2), rows=None) -> (L, 3) replicated-median
+    times to deplete each food source, the paper's three calibration
+    objectives (``rows``: see ``replicated_batch``)."""
+    def lanes(gen, genomes, rows=None):
+        # rows= only for a block of islands, so a simulator that takes no
+        # rows still serves a one-rank run
+        kw = {} if rows is None else {"rows": rows}
+        return simulate_batch(ants_cfg, genomes[:, 0], genomes[:, 1],
+                              generator=gen, **kw)
+
+    return replicated_batch(lanes, replicates)
+
+
+def _streaming_init(ga_cfg, eval_fn, n_total, chunk, k, pool, record, dev,
+                    settings, checkpoint_dir, printer):
+    """The paper-scale streaming init through ``pool`` (shut down after),
+    then its best ``k`` by NSGA-II truncation: (StreamingResult, genomes,
+    objectives)."""
+    try:
+        sres = ga.evaluate_population_streaming(
+            ga_cfg, eval_fn, 0, n_total=n_total, chunk=chunk,
+            environment=pool, record=record, device=dev, settings=settings,
+            checkpoint_dir=checkpoint_dir,
+            progress=lambda i, n: printer(
+                f"[explore] init chunk {i}/{n}") if i % 8 == 0 else None)
+    finally:
+        pool.shutdown()
+    printer(f"[explore] init: {n_total} individuals in "
+            f"{sres.wall_s:.1f}s ({sres.attempts} attempts, "
+            f"{sres.resumed_chunks} chunks resumed) -> "
+            f"{n_total / max(sres.wall_s, 1e-9) * 3600:.0f} evals/hour")
+    top_g, top_o = ga.select_top_streaming(ga_cfg, sres.genomes,
+                                           sres.objectives, k, device=dev)
+    return sres, top_g, top_o
 
 
 def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
@@ -84,15 +139,28 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
               pipeline: bool = False, reseed_frac: float = 0.5,
               epochs_per_superstep: int = 0, init_population: int = 0,
               init_chunk: int = 2048, fault_rate: float = 0.0,
-              device="cuda", printer=print):
+              pool_devices: int = 0, device="cuda", mesh=None,
+              printer=print):
     """Island-model NSGA-II calibration of the ants model on ``device``.
     With ``init_population`` the islands are seeded from the best
     ``n_islands * mu`` of that many individuals, evaluated first in chunks
     of ``init_chunk`` through the environment pool of ``make_init_pool``
-    (``fault_rate``: its injected per-attempt failure rate), checkpointed
-    under ``out_dir/init_checkpoints``. Returns (final IslandState, the
-    pareto_front.json dict)."""
-    dev = resolve_device(device)
+    (``fault_rate``: its injected per-attempt failure rate;
+    ``pool_devices``: its device-set members), checkpointed under
+    ``out_dir/init_checkpoints``.
+
+    ``mesh`` (``launch.mesh.make_island_mesh``; default the process
+    group's ranks, one without one): every rank calls ``calibrate`` alike
+    and runs on the mesh's device; the islands spread over the ranks
+    (``run_islands``), rank 0 alone runs the init and broadcasts its
+    picks, and rank 0 alone writes ``out_dir``. Every rank returns (final
+    IslandState, the pareto_front.json dict)."""
+    if mesh is None:
+        mesh = make_host_mesh(device)
+    elif mesh.device.type != resolve_device(device).type:
+        raise ValueError(f"mesh on {mesh.device}, device={device!r}")
+    dev = mesh.device
+    group, _, rank = mesh_group(mesh)
     if init_population and init_population < n_islands * mu:
         raise ValueError(
             f"--init-population must cover the island populations: need "
@@ -102,12 +170,13 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
     eval_fn = ants_eval_fn(ants_cfg, replicates)
     generator = make_generator(0, dev)
     os.makedirs(out_dir, exist_ok=True)
-    pop_hook = SavePopulationHook(os.path.join(out_dir, "populations"))
+    pop_hook = (SavePopulationHook(os.path.join(out_dir, "populations"))
+                if rank == 0 else None)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
 
     # what a checkpoint must match to be resumed (epochs may grow; the
-    # superstep grain and the fault rate change when or where work runs,
-    # never its result)
+    # superstep grain, the mesh, the pool's devices and the fault rate
+    # change when or where work runs, never its result)
     common = {"ants": dataclasses.asdict(ants_cfg), "device": dev.type,
               "replicates": replicates}
     init_settings = json.dumps(dict(
@@ -141,7 +210,7 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
     record = RunRecord(
         workflow="ants-calibration",
         scheduler="islands-pipelined" if pipeline else "islands",
-        environment=f"torch:{dev}", started_at=_utcnow())
+        environment=f"mesh{mesh.shape}", started_at=_utcnow())
     run_t0 = time.monotonic()
     last_epoch_t = [run_t0]
     if start is not None:
@@ -153,7 +222,8 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
                 mode="cache"))
 
     def on_epoch(state, rng):
-        # state: a CPU snapshot of the boundary; rng: the generator there
+        # rank 0 only. state: a CPU snapshot of the boundary (every
+        # island); rng: the generator there
         e = state.epoch
         checkpoint.save(ckpt_dir, e, {"state": state, "rng": rng.numpy(),
                                       "settings": settings_json})
@@ -180,25 +250,24 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
     # Skipped when resuming an island checkpoint (its state embodies it).
     init_record = None
     if init_population and start is None:
-        pool = make_init_pool(fault_rate)
-        try:
-            sres = ga.evaluate_population_streaming(
-                ga_cfg, eval_fn, 0, n_total=init_population,
-                chunk=init_chunk, environment=pool, record=record,
-                device=dev, settings=init_settings,
-                checkpoint_dir=os.path.join(out_dir, "init_checkpoints"),
-                progress=lambda k, n: printer(
-                    f"[explore] init chunk {k}/{n}") if k % 8 == 0 else None)
-        finally:
-            pool.shutdown()
-        printer(f"[explore] init: {init_population} individuals in "
-                f"{sres.wall_s:.1f}s ({sres.attempts} attempts, "
-                f"{sres.resumed_chunks} chunks resumed) -> "
-                f"{init_population / max(sres.wall_s, 1e-9) * 3600:.0f} "
-                f"evals/hour")
-        top_g, top_o = ga.select_top_streaming(
-            ga_cfg, sres.genomes, sres.objectives, n_islands * mu,
-            device=dev)
+        if rank == 0:
+            init_record, top_g, top_o = _streaming_init(
+                ga_cfg, eval_fn, init_population, init_chunk, n_islands * mu,
+                make_init_pool(fault_rate, pool_devices=pool_devices,
+                               device=dev.type),
+                # device-set members pin each job to a card of theirs: the
+                # jobs then make their tensors on the bare "cuda" device
+                record, torch.device(dev.type) if pool_devices else dev,
+                init_settings,
+                os.path.join(out_dir, "init_checkpoints"), printer)
+        else:
+            top_g = torch.empty((n_islands * mu, ga_cfg.genome_dim),
+                                device=dev)
+            top_o = torch.empty((n_islands * mu, ga_cfg.n_objectives),
+                                device=dev)
+        if group is not None:
+            dist.broadcast(top_g, src=0, group=group)
+            dist.broadcast(top_o, src=0, group=group)
         # a throwaway generator: the run's own draws start at the islands
         st0 = init_island_state(ga_cfg, torch.Generator(device=dev),
                                 n_islands=n_islands,
@@ -212,7 +281,6 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
         start = st0._replace(
             islands=islands,
             total_evaluations=init_population - n_islands * mu)
-        init_record = sres
 
     t0 = time.time()
     state = run_islands(
@@ -221,13 +289,14 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
         archive_size=archive_size, checkpoint_fn=on_epoch,
         merge_top_k=min(merge_top_k, mu), reseed_frac=reseed_frac,
         pipeline=pipeline, epochs_per_superstep=epochs_per_superstep,
-        start_state=start, device=dev)
+        start_state=start, device=dev, mesh=mesh)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
     evals = state.total_evaluations
     printer(f"[explore] done: {evals} evaluations in {dt:.1f}s "
-            f"({evals / max(dt, 1e-9) * 3600:.0f} evals/hour on {dev})")
+            f"({evals / max(dt, 1e-9) * 3600:.0f} evals/hour on {dev}, "
+            f"mesh {mesh.shape}, rank {rank})")
 
     mask = pareto_front(state.archive).cpu().numpy()
     front = {
@@ -242,10 +311,11 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
                          "attempts": init_record.attempts,
                          "resumed_chunks": init_record.resumed_chunks,
                          "fault_rate": fault_rate}
-    with open(os.path.join(out_dir, "pareto_front.json"), "w") as f:
-        json.dump(front, f, indent=2)
-    record.finalize(dt)
-    record.save(os.path.join(out_dir, "provenance.json"))
+    if rank == 0:
+        with open(os.path.join(out_dir, "pareto_front.json"), "w") as f:
+            json.dump(front, f, indent=2)
+        record.finalize(dt)
+        record.save(os.path.join(out_dir, "provenance.json"))
     return state, front
 
 
@@ -266,11 +336,13 @@ def ants_scalar_eval(reduced: bool = True, replicates: int = 3,
 def calibrate_surrogate(*, reduced: bool = True, rounds: int = 8, q: int = 8,
                         n_init: int = 16, replicates: int = 3,
                         acquisition: str = "qei", fault_rate: float = 0.0,
-                        out_dir: str, device="cuda", printer=print):
+                        pool_devices: int = 0, out_dir: str, device="cuda",
+                        printer=print):
     """Surrogate-assisted calibration of the ants model on ``device``: Sobol
     seeding, then GP + q-EI rounds streamed through the fault-tolerant
-    environment pool, checkpointed per round (restart-safe; a checkpoint of
-    other settings is refused), with the reference's provenance schema.
+    environment pool (``pool_devices``: its device-set members; see
+    ``make_init_pool``), checkpointed per round (restart-safe; a checkpoint
+    of other settings is refused), with the reference's provenance schema.
     Returns (SurrogateResult, the surrogate_result.json dict)."""
     dev = resolve_device(device)
     ants_cfg = REDUCED if reduced else CONFIG
@@ -285,7 +357,8 @@ def calibrate_surrogate(*, reduced: bool = True, rounds: int = 8, q: int = 8,
         sort_keys=True)
     record = RunRecord(workflow="ants-surrogate", scheduler="ask-tell",
                        environment="pool", started_at=_utcnow())
-    pool = make_init_pool(fault_rate)
+    pool = make_init_pool(fault_rate, pool_devices=pool_devices,
+                          device=dev.type)
     t0 = time.time()
     try:
         res = run_surrogate(
@@ -316,14 +389,6 @@ def calibrate_surrogate(*, reduced: bool = True, rounds: int = 8, q: int = 8,
     record.finalize(dt)
     record.save(os.path.join(out_dir, "provenance.json"))
     return res, out
-
-
-# flags of the reference CLI whose machinery the port does not have yet
-_NOT_PORTED = {"mesh": "--mesh", "distributed": "--distributed",
-               "coordinator": "--coordinator",
-               "num_processes": "--num-processes",
-               "process_id": "--process-id",
-               "pool_devices": "--pool-devices"}
 
 
 def main(argv=None):
@@ -368,14 +433,22 @@ def main(argv=None):
                     default=os.path.join(tempfile.gettempdir(), "repro_ants"),
                     help="output and checkpoint directory (default: "
                          "repro_ants under the temporary directory)")
-    # the reference's flags whose machinery is not ported yet: given a
-    # non-default value they stop the run
-    ap.add_argument("--mesh", default="")
-    ap.add_argument("--distributed", action="store_true")
-    ap.add_argument("--coordinator", default=None)
+    ap.add_argument("--mesh", default="",
+                    help="island mesh over the ranks, e.g. data=4 or "
+                         "pod=2,data=2 (data=0: every rank); needs that "
+                         "many ranks (torchrun or --distributed)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a process group: through env:// (torchrun) "
+                         "or --coordinator/--num-processes/--process-id")
+    ap.add_argument("--coordinator", default=None,
+                    help="HOST:PORT of rank 0 for the process group")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
-    ap.add_argument("--pool-devices", type=int, default=0)
+    ap.add_argument("--pool-devices", type=int, default=0,
+                    help="split the local devices into this many disjoint "
+                         "DeviceEnvironment pool members (0 = thread-backed "
+                         "members on the default device) for the init's "
+                         "and the surrogate's jobs")
     ap.add_argument("--rounds", type=int, default=8,
                     help="surrogate ask/tell rounds (of --q proposals each)")
     ap.add_argument("--q", type=int, default=8,
@@ -387,25 +460,45 @@ def main(argv=None):
     if args.method not in ("islands", "surrogate"):
         ap.error(f"--method {args.method} is not ported yet (only islands "
                  f"and surrogate)")
-    for dest, flag in _NOT_PORTED.items():
-        if getattr(args, dest) not in (None, False, 0, 0.0, ""):
-            ap.error(f"{flag} is not ported yet")
-    if args.method == "surrogate":
-        calibrate_surrogate(reduced=args.reduced, rounds=args.rounds,
-                            q=args.q, n_init=args.n_init,
-                            replicates=args.replicates,
-                            acquisition=args.acquisition,
-                            fault_rate=args.fault_rate, out_dir=args.out,
-                            device=args.device)
-        return
-    calibrate(reduced=args.reduced, n_islands=args.islands, mu=args.mu,
-              lam=args.lam, steps_per_epoch=args.steps_per_epoch,
-              epochs=args.epochs, replicates=args.replicates,
-              pipeline=args.pipeline, reseed_frac=args.reseed_frac,
-              epochs_per_superstep=args.superstep,
-              init_population=args.init_population,
-              init_chunk=args.init_chunk, fault_rate=args.fault_rate,
-              out_dir=args.out, device=args.device)
+    joined = False
+    if args.distributed or args.num_processes or args.coordinator:
+        joined = init_distributed(
+            coordinator=args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id, force=args.distributed,
+            backend=("gloo" if torch.device(args.device).type == "cpu"
+                     else None))
+    try:
+        mesh = None
+        if args.mesh:
+            spec = dict(kv.split("=") for kv in args.mesh.split(","))
+            try:
+                mesh = make_island_mesh(pod=int(spec.get("pod", 1)),
+                                        data=int(spec.get("data", 0)),
+                                        device=args.device)
+            except ValueError as e:
+                ap.error(f"--mesh {args.mesh}: {e}")
+        if args.method == "surrogate":
+            calibrate_surrogate(reduced=args.reduced, rounds=args.rounds,
+                                q=args.q, n_init=args.n_init,
+                                replicates=args.replicates,
+                                acquisition=args.acquisition,
+                                fault_rate=args.fault_rate,
+                                pool_devices=args.pool_devices,
+                                out_dir=args.out, device=args.device)
+            return
+        calibrate(reduced=args.reduced, n_islands=args.islands, mu=args.mu,
+                  lam=args.lam, steps_per_epoch=args.steps_per_epoch,
+                  epochs=args.epochs, replicates=args.replicates,
+                  mesh=mesh, pipeline=args.pipeline,
+                  reseed_frac=args.reseed_frac,
+                  epochs_per_superstep=args.superstep,
+                  init_population=args.init_population,
+                  init_chunk=args.init_chunk, fault_rate=args.fault_rate,
+                  pool_devices=args.pool_devices, out_dir=args.out,
+                  device=args.device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -5,6 +5,7 @@ JAX nor the JAX package."""
 import ast
 import json
 import os
+import socket
 from pathlib import Path
 
 import numpy as np
@@ -149,7 +150,6 @@ def test_calibrate_refuses_missing_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh", "data=2"], ["--distributed"], ["--pool-devices", "2"],
     ["--method", "surrogate-mo"], ["--method", "service"]])
 def test_cli_flags_not_ported_yet(argv, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:
@@ -161,6 +161,46 @@ def test_cli_flags_not_ported_yet(argv, capsys, tmp_path):
 TINY = ["--device", "cpu", "--reduced", "--islands", "2", "--mu", "4",
         "--lam", "4", "--steps-per-epoch", "1", "--epochs", "2",
         "--replicates", "1"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# the reference's multi-device flags, run through the CLI in one process
+@pytest.mark.parametrize("argv", [
+    ["--mesh", "data=1"],
+    ["--pool-devices", "1", "--init-population", "16", "--init-chunk", "8"],
+    ["--distributed", "--coordinator", "127.0.0.1:{port}",
+     "--num-processes", "1", "--process-id", "0"],
+    ["--mesh", "data=2"]])
+def test_cli_runs_the_multi_device_flags(argv, capsys, tmp_path):
+    argv = [a.format(port=_free_port()) for a in argv]
+    if argv == ["--mesh", "data=2"]:
+        # two ranks asked of a process without a process group
+        with pytest.raises(SystemExit) as e:
+            explore.main(TINY + argv + ["--out", str(tmp_path)])
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "torchrun --nproc-per-node 2" in err and "--distributed" in err
+        assert not os.path.exists(tmp_path / "pareto_front.json")
+        return
+    explore.main(TINY + argv + ["--out", str(tmp_path)])
+    assert not torch.distributed.is_initialized()
+    with open(tmp_path / "pareto_front.json") as f:
+        front = json.load(f)
+    with open(tmp_path / "provenance.json") as f:
+        record = json.load(f)
+    assert record["environment"] == "mesh{'data': 1}"
+    assert front["objectives"] and _mutually_nondominated(
+        front["objectives"])
+    if "--pool-devices" in argv:
+        chunks = [t for t in record["tasks"] if t["task"] == "init_chunk"]
+        assert len(chunks) == 2 and front["init"]["n_individuals"] == 16
+        assert {a["environment"] for t in chunks
+                for a in t["attempts"]} == {"dev0[cpu]"}
 
 
 # each flag of the reference's --method islands that the port runs, end to

@@ -757,3 +757,134 @@ def test_listing3_on_cuda_serial_async_and_cached_bitwise(cuda):
     where = TorchTask("where", lambda x: x.device.type, inputs=(Val("x"),),
                       outputs=(Val("d"),))
     assert where.run({"x": torch.ones(2)})["d"] == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# several ranks on the card: two gloo processes on cuda:0
+# ---------------------------------------------------------------------------
+RANK_PREAMBLE = """
+import datetime, functools, sys
+import torch
+import torch.distributed as dist
+rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=world,
+                        timeout=datetime.timedelta(seconds=120))
+from repro_torch.launch import mesh as tmesh
+mesh = tmesh.make_island_mesh(data=world, device="cuda")
+"""
+
+
+def _card_ranks(script, tmp_path, world=2, timeout=300.0):
+    """``script`` as ``world`` gloo ranks on the card; -> their saved
+    results. A rank that fails or overruns fails the test."""
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    import time
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    code = RANK_PREAMBLE + textwrap.dedent(script)
+    logs = [open(tmp_path / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(world),
+         str(tmp_path / "store"), str(tmp_path)], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT, cwd=root) for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, (tmp_path / f"rank{r}.log").read_text()
+    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def test_sharded_dominance_pass_two_ranks_on_the_card(cuda, tmp_path):
+    got = _card_ranks("""
+        from repro_torch.evolution import nsga2
+        from repro_torch.kernels import ops
+        from repro_torch.runtime import sharding
+        sweep = functools.partial(sharding.sharded_dominance_pass, mesh=mesh)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        res = []
+        for n, groups in ((997, 3), (320, 0), (2048, 0)):
+            f = torch.randint(0, 1001, (n, 3), generator=gen,
+                              device="cuda").to(torch.float32)
+            g = (torch.arange(n, device="cuda", dtype=torch.int32) % groups
+                 if groups else None)
+            ops.reset_kernel_launch_counts()
+            counts, block = sweep(f, groups=g)
+            launches = ops.kernel_launch_counts()["dominance_pass"]
+            one_c, one_b = ops.dominance_pass(f, groups=g)
+            rows = one_b[block.row0:block.row0 + len(block.words)]
+            res.append(dict(
+                counts=torch.equal(counts, one_c),
+                rows=torch.equal(block.words, rows), launches=launches,
+                ranks=torch.equal(nsga2.nondominated_ranks(
+                    f, groups=g, pass_fn=sweep),
+                    nsga2.nondominated_ranks(f, groups=g))))
+        torch.save(res, f"{out}/rank{rank}.pt")
+    """, tmp_path)
+    for res in got:
+        for x in res:
+            assert x == dict(counts=True, rows=True, launches=1, ranks=True)
+
+
+def test_two_rank_island_run_on_the_card_equals_one_rank(cuda, tmp_path):
+    run = """
+        import dataclasses
+        from repro_torch.configs.ants_netlogo import REDUCED
+        from repro_torch.evolution import island, nsga2
+        from repro_torch.launch import explore
+
+        def run(mesh=None, **kw):
+            cfg = nsga2.NSGA2Config(mu=8, genome_dim=2,
+                                    bounds=((0.0, 99.0), (0.0, 99.0)))
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            ants = dataclasses.replace(REDUCED, max_ticks=100)
+            return island.run_islands(
+                cfg, explore.ants_eval_fn(ants, 2), gen, n_islands=4, lam=8,
+                steps_per_epoch=2, epochs=2, archive_size=32, merge_top_k=4,
+                device="cuda", mesh=mesh, **kw)
+    """
+    got = _card_ranks(run + """
+        res = [run(mesh), run(mesh, pipeline=True)]
+        torch.save([[t.cpu() for t in list(s.islands) + list(s.archive)]
+                    for s in res], f"{out}/rank{rank}.pt")
+    """, tmp_path)
+    ns = {"torch": torch}
+    import textwrap
+    exec(textwrap.dedent(run), ns)
+    want = [ns["run"](), ns["run"](pipeline=True)]
+    for res in got:
+        for tensors, state in zip(res, want):
+            for a, b in zip(tensors, list(state.islands) + list(state.archive)):
+                assert torch.equal(a, b.cpu())
+
+
+def test_device_environment_pins_attempts_on_the_card(cuda):
+    from repro_torch.core import (Context, PyTask, TorchTask, Val,
+                                  make_device_members)
+    (member,) = make_device_members(None, 1)
+    assert member.devices == (torch.device("cuda", 0),)
+    probe = PyTask("probe", lambda ctx: {
+        "dev": torch.cuda.current_device(),
+        "made": torch.ones(1, device="cuda").device.index},
+        outputs=(Val("dev", int), Val("made", int)))
+    assert member.submit(probe, Context()) == {"dev": 0, "made": 0}
+    lane = TorchTask("lane", lambda x: x * 2, inputs=(Val("x"),),
+                     outputs=(Val("y"),))
+    outs = member.map_explore(lane, [Context(x=torch.ones(2))] * 4)
+    assert member.last_lane_devices == (torch.device("cuda", 0),)
+    assert all(o["y"].device == torch.device("cuda", 0) for o in outs)

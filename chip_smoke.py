@@ -1353,8 +1353,10 @@ MESH_TIMEOUT_S = 300
 def mesh_rank(argv) -> int:
     """One rank of phase ``mesh``, as ``chip_smoke.py --mesh-rank RANK WORLD
     STORE OUT``: joins a gloo process group through a FileStore at STORE,
-    runs (a) the sharded dominance sweep at three shapes and (b) the island
-    calibration over a ``data=WORLD`` mesh, writes OUT/rank{RANK}.json
+    runs (a) the sharded dominance sweep at three shapes, B1 and B2 at the
+    shapes the island run gives a rank, against their plain versions, and
+    the archive merge sharded and local, and (b) the island calibration
+    over a ``data=WORLD`` mesh, writes OUT/rank{RANK}.json
     (checks, times, launches, walls) and .pt (the final archive and front),
     and prints nothing of the contract."""
     import datetime
@@ -1363,6 +1365,7 @@ def mesh_rank(argv) -> int:
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.evolution import archive as tarchive
     from repro_torch.evolution import nsga2
     from repro_torch.kernels import ops, ref
     from repro_torch.launch import explore
@@ -1380,7 +1383,23 @@ def mesh_rank(argv) -> int:
     require(mesh.shape == {"data": world} and mesh.rank == rank
             and dev.type == "cuda", f"mesh {mesh}")
     sweep = functools.partial(sharding.sharded_dominance_pass, mesh=mesh)
-    result = {"rank": rank, "device": str(dev), "sweep": []}
+    result = {"rank": rank, "device": str(dev), "sweep": [],
+              "step_kernels": []}
+
+    def alone(kernel, plain) -> dict:
+        """``kernel`` and ``plain`` timed on this rank while the others
+        wait at a barrier: one rank times at a time, the card is shared."""
+        timing = {}
+        for r in range(world):
+            if r == rank:
+                kt, _ = turns_ms(torch, kernel, None, inner=10,
+                                 hold_cycles=HOLD_CYCLES)
+                pt, _ = turns_ms(torch, plain, None, reps=5, inner=3)
+                timing = {"ms": kt["median"],
+                          "ms_min_max": [kt["min"], kt["max"]],
+                          "plain_ms": pt["median"]}
+            dist.barrier()
+        return timing
 
     # (a) the sharded sweep: the same seeded inputs on every rank
     gen = torch.Generator(device=dev).manual_seed(22)
@@ -1430,19 +1449,8 @@ def mesh_rank(argv) -> int:
         words = n_p // 32
         n_bytes = (b + n_p) * 3 * 4 + (b + n_p) * 4 + b * 4 + b * words * 4
         b_ms, b_by = bound_ms(n_bytes, pairs * 2 * 3)
-        # one rank times at a time: the card is shared
-        timing = {}
-        for r in range(world):
-            if r == rank:
-                kt, _ = turns_ms(torch, lambda: ops.dominance_pass(*args),
-                                 None, inner=10, hold_cycles=HOLD_CYCLES)
-                pt, _ = turns_ms(torch,
-                                 lambda: ref.dominance_pass_ref(*args),
-                                 None, reps=5, inner=3)
-                timing = {"ms": kt["median"],
-                          "ms_min_max": [kt["min"], kt["max"]],
-                          "plain_ms": pt["median"]}
-            dist.barrier()
+        timing = alone(lambda: ops.dominance_pass(*args),
+                       lambda: ref.dominance_pass_ref(*args))
         result["sweep"].append({
             "shape": name, "n": n, "grouped": g is not None,
             "padded_rows": n_p, "block": [r0, b], "kept_rows": len(rows),
@@ -1451,6 +1459,82 @@ def mesh_rank(argv) -> int:
             "ranks_equal": True, "fronts": int(ranks.max()) + 1,
             "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
             **timing})
+
+    # the kernels at the shapes the island run below gives each rank: B1 at
+    # its block's lanes (islands a rank x mu or lam x replicates), B2 over
+    # its block's islands as groups, at mu rows an island (the state's
+    # ranking, the emigrants' top-k) and mu + lam (the step's selection);
+    # seeded objectives with ties (ticks in [0, 1000]) and a quarter of the
+    # rows at +BIG
+    per_rank = CAL_FLAGS["n_islands"] // world
+    for lanes in sorted({per_rank * CAL_FLAGS[k] * CAL_FLAGS["replicates"]
+                         for k in ("mu", "lam")}):
+        chem = torch.rand((lanes, 72, 72), generator=gen, device=dev) * 100.0
+        rate = torch.rand((lanes,), generator=gen, device=dev)
+        evap = torch.rand((lanes,), generator=gen, device=dev) * 0.5
+        got = ops.diffuse_evaporate(chem, rate, evap)
+        plain = ref.diffuse_evaporate_ref(chem, rate, evap)
+        err = (got - plain).abs().max().item()
+        require(torch.equal(got, plain),
+                f"diffuse_evaporate bitwise at ({lanes},72,72), a rank's "
+                f"block; max abs err {err}")
+        b_ms, b_by = bound_ms(2 * chem.numel() * 4 + 2 * lanes * 4,
+                              chem.numel() * DIFFUSION_OPS_PER_PATCH)
+        result["step_kernels"].append({
+            "kernel": "diffuse_evaporate", "shape": [lanes, 72, 72],
+            "bitwise": True, "max_abs_err": err, "bound_ms": b_ms,
+            "bound_by": b_by,
+            **alone(lambda: ops.diffuse_evaporate(chem, rate, evap),
+                    lambda: ref.diffuse_evaporate_ref(chem, rate, evap))})
+    mu, lam = CAL_FLAGS["mu"], CAL_FLAGS["lam"]
+    for size in (mu, mu + lam):
+        n = per_rank * size
+        f = torch.randint(0, 1001, (n, 3), generator=gen,
+                          device=dev).to(torch.float32)
+        f[torch.randperm(n, generator=gen, device=dev)[:n // 4]] = \
+            nsga2.BIG
+        g = nsga2.island_groups(per_rank, size, dev)
+        kc, kb = ops.dominance_pass(f, groups=g)
+        pc, pb = ref.dominance_pass_ref(f, groups=g)
+        require(torch.equal(kc, pc) and torch.equal(kb, pb),
+                f"dominance_pass at {n} rows in {per_rank} groups of {size}, "
+                f"a rank's block, against its plain version")
+        words = -(-n // 32)
+        b_ms, b_by = bound_ms(n * 3 * 4 + n * 4 + n * 4 + n * words * 4,
+                              per_rank * size * size * 2 * 3)
+        result["step_kernels"].append({
+            "kernel": "dominance_pass", "rows": n, "groups": per_rank,
+            "group_rows": size, "big_rows": n // 4,
+            "dominated_rows": int((pc > 0).sum()), "equal": True,
+            "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+            **alone(lambda: ops.dominance_pass(f, groups=g),
+                    lambda: ref.dominance_pass_ref(f, groups=g))})
+
+    # the archive merge at the paper's defaults (256 slots, half empty, and
+    # 8 islands' 8 emigrants), through the sweep sharded over the ranks and
+    # through one local sweep of the replicated pool: equal archives, and
+    # the wall of each (host clock, collectives included)
+    arch = tarchive.Archive(
+        torch.rand((256, 2), generator=gen, device=dev), ticks[:256],
+        ticks[:256, 0] < nsga2.BIG)
+    inc = (torch.rand((64, 2), generator=gen, device=dev), ticks[256:])
+    sharded = tarchive.merge(arch, *inc, mesh=mesh)
+    local = tarchive.merge(arch, *inc)
+    require(all(torch.equal(a, b) for a, b in zip(sharded, local)),
+            "archive merge: the sharded sweep's archive differs from one "
+            "local sweep's")
+    merge_ms = {}
+    for name, m in (("sharded", mesh), ("local", None)):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            tarchive.merge(arch, *inc, mesh=m)
+        torch.cuda.synchronize()
+        merge_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+    result["merge"] = {"pool_rows": 320, "equal": True, "calls": 20,
+                       "sharded_ms": merge_ms["sharded"],
+                       "local_ms": merge_ms["local"]}
 
     # (b) the island calibration over the mesh, counts from 0 just before
     with tempfile.TemporaryDirectory() as run_dir:
@@ -1485,7 +1569,12 @@ def mesh_phase(torch, dev, one_rank, init_inline) -> dict:
     single ``dominance_pass`` and to ``dominance_pass_ref``, the ranks
     through the sharded sweep equal to the one-rank ranks, and each rank's
     rectangular launch (its block of padded rows against every padded row)
-    equal to its plain version and timed; (b) ``explore.calibrate`` at
+    equal to its plain version and timed; B1 at a rank's block of lanes
+    (4 islands x 16 x 5 replicates = 320) and B2 at its grouped rankings
+    (64 rows in 4 groups of 16, 128 in 4 of 32; ties and +BIG rows) held to
+    their plain versions and timed; the 320-row archive merge through the
+    sharded sweep and through one local sweep, equal, both timed; (b)
+    ``explore.calibrate`` at
     CONFIG with the calibrate phase's flags over a ``data=2`` mesh: its
     archive (genomes, objectives, valid), evaluations and front equal bit
     for bit to ``one_rank`` (phase calibrate's (state, front, wall)), its
@@ -1561,6 +1650,11 @@ def mesh_phase(torch, dev, one_rank, init_inline) -> dict:
         for row in res["sweep"]:
             emit({"phase": "mesh", "what": "sharded_sweep", "rank": r,
                   **row})
+        for row in res["step_kernels"]:
+            emit({"phase": "mesh", "what": "kernels_at_rank_shapes",
+                  "rank": r, **row})
+        emit({"phase": "mesh", "what": "archive_merge", "rank": r,
+              **res["merge"]})
     emit({"phase": "mesh", "what": "calibrate", "config": "CONFIG",
           **CAL_FLAGS, "mesh": {"data": MESH_RANKS},
           "backend": "gloo", "ranks_on": [res["device"] for res in ranks],

@@ -32,11 +32,11 @@ def merge(archive: Archive, genomes, objectives, valid=None, *,
           mesh=None) -> Archive:
     """Truncate (archive + incoming) to archive size by (rank, -crowding).
 
-    The pool-wide non-dominated sort, the archive-scale O(pool^2) hot spot,
-    runs through the row-sharded sweep over ``mesh``'s ranks
-    (``sharded_dominance_pass``; every rank calls ``merge`` with the same
-    replicated pool and gets the same archive). Without a mesh, or with one
-    rank, that is one fused dominance sweep."""
+    The pool-wide non-dominated sort runs through the row-sharded sweep
+    over ``mesh``'s ranks (``sharded_dominance_pass``; every rank calls
+    ``merge`` with the same replicated pool and gets the same archive), as
+    the reference's does. Without a mesh, or with one rank, that is one
+    fused dominance sweep."""
     a = archive.genomes.shape[0]
     if valid is None:
         valid = torch.ones((genomes.shape[0],), dtype=torch.bool,

@@ -157,7 +157,10 @@ def calibrate(*, reduced: bool = True, n_islands: int = 8, mu: int = 16,
     IslandState, the pareto_front.json dict)."""
     if mesh is None:
         mesh = make_host_mesh(device)
-    elif mesh.device.type != resolve_device(device).type:
+    want = resolve_device(device)
+    other_card = (want.index is not None and mesh.device.index is not None
+                  and want.index != mesh.device.index)
+    if mesh.device.type != want.type or other_card:
         raise ValueError(f"mesh on {mesh.device}, device={device!r}")
     dev = mesh.device
     group, _, rank = mesh_group(mesh)

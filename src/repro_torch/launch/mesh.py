@@ -51,17 +51,21 @@ def init_distributed(*, coordinator: str = None, num_processes: int = None,
 
 
 def local_device(device="cuda") -> torch.device:
-    """This rank's device: ``cuda:{local rank % cards}`` (the local rank
-    from ``LOCAL_RANK``, else the global rank), made the current CUDA
-    device; ``cpu`` for a CPU run."""
+    """This rank's device. Without a process group, ``device`` as given
+    (``cuda:1`` stays card 1, the current device is left alone). In one,
+    ``cuda:{local rank % cards}`` (the local rank from ``LOCAL_RANK``, else
+    the global rank), made the current CUDA device; a ``device`` naming
+    another card raises. ``cpu`` for a CPU run."""
     dev = resolve_device(device)
-    if dev.type != "cuda":
+    if dev.type != "cuda" or not dist.is_initialized():
         return dev
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    local = int(os.environ.get("LOCAL_RANK", rank))
-    dev = torch.device("cuda", local % torch.cuda.device_count())
-    torch.cuda.set_device(dev)
-    return dev
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    mine = torch.device("cuda", local % torch.cuda.device_count())
+    if dev.index is not None and dev.index != mine.index:
+        raise ValueError(f"device {device!r}, but this rank (local rank "
+                         f"{local}) runs on {mine}")
+    torch.cuda.set_device(mine)
+    return mine
 
 
 def _mesh(shape, names, device) -> Mesh:

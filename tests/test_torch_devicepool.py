@@ -24,6 +24,16 @@ from repro_torch.runtime.sharding import Mesh  # noqa: E402
 CARDS = [torch.device("cuda", i) for i in range(4)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: at these sizes it is faster than many, and it
+    leaves the cores to the pool's threads and the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("k,sizes", [(1, [4]), (2, [2, 2]), (3, [2, 1, 1]),
                                      (4, [1, 1, 1, 1])])
 def test_make_device_members_partitions_disjointly(k, sizes):

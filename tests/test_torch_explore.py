@@ -169,6 +169,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: at these sizes it is faster than many, and it
+    leaves the cores to the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the reference's multi-device flags, run through the CLI in one process
 @pytest.mark.parametrize("argv", [
     ["--mesh", "data=1"],
@@ -176,7 +186,8 @@ def _free_port() -> int:
     ["--distributed", "--coordinator", "127.0.0.1:{port}",
      "--num-processes", "1", "--process-id", "0"],
     ["--mesh", "data=2"]])
-def test_cli_runs_the_multi_device_flags(argv, capsys, tmp_path):
+def test_cli_runs_the_multi_device_flags(argv, capsys, tmp_path,
+                                        one_thread):
     argv = [a.format(port=_free_port()) for a in argv]
     if argv == ["--mesh", "data=2"]:
         # two ranks asked of a process without a process group

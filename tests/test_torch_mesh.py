@@ -32,6 +32,16 @@ from repro_torch.runtime import sharding  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 BOUNDS = ((0.0, 99.0), (0.0, 99.0))
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: at these sizes it is faster than many, and it
+    leaves the cores to the spawned ranks and the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 # every rank script starts here: argv = rank, world, store, out
 PREAMBLE = """
 import datetime, functools, sys
@@ -264,6 +274,31 @@ def test_init_distributed_is_a_noop_single_process():
         tmesh.make_island_mesh(data=2, device="cpu")
     with pytest.raises(ValueError, match="does not divide"):
         tmesh.make_island_mesh(pod=2, device="cpu")
+
+
+def test_local_device_keeps_an_explicit_card(monkeypatch):
+    """Two cards, mocked: without a process group ``cuda:1`` stays card 1
+    and the current device is left alone; in one, the rank's card is made
+    current and a device naming another card raises."""
+    current = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", current.append)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert tmesh.local_device("cuda:1") == torch.device("cuda", 1)
+    assert tmesh.local_device("cuda") == torch.device("cuda")
+    assert current == []
+    mesh = tmesh.make_host_mesh("cuda:1")
+    assert mesh.device == torch.device("cuda", 1) and mesh.size == 1
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
+    assert tmesh.local_device("cuda") == torch.device("cuda", 1)
+    assert tmesh.local_device("cuda:1") == torch.device("cuda", 1)
+    assert current == [torch.device("cuda", 1)] * 2
+    with pytest.raises(ValueError, match="runs on cuda:1"):
+        tmesh.local_device("cuda:0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert tmesh.local_device("cuda:0") == torch.device("cuda", 0)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ surrogate-assisted calibration of the ants model at the paper's full model
 size, the surrogate's archive-scale fit at 50,000 points, the streaming
 init through the fault-tolerant pool seeding a pipelined island run, the
 GP factorization sweep, flash attention at smollm-135m's full width and the
-paper's Listings 2-5 through the workflow DSL, and the island run over
-two ranks, and prints one JSON object per line.
+paper's Listings 2-5 through the workflow DSL, the island run over two
+ranks, the multi-objective qEHVI surrogate and the exploration service
+with its two tenants, and prints one JSON object per line.
 
     python3 chip_smoke.py
 
@@ -135,7 +136,30 @@ Phases (any failure exits non-zero):
               streaming init through make_init_pool(0.35, pool_devices=1),
               bitwise equal to phase init's inline leg (see mesh_phase; its
               launches are the "mesh" path of the kernels line).
- 13. the kernels line, the card's name and power limit, and the last line
+ 13. surrogate_mo  the multi-objective qEHVI surrogate: calibrate_
+              surrogate_mo at CONFIG (2 Sobol rounds and 1 qEHVI round of
+              4, 3 replicates) through make_init_pool(0.35), the
+              launcher's default 3 x 2 pool, resumed inline from its
+              round-2 commit (bitwise equal); an ask at 64 told points
+              of a synthetic 3-objective history on the card and on the
+              CPU (equal archives, gains and picks within the
+              stated tolerance); the ask at 8192 told points through the
+              inducing fit (gp_sqdist and tri_solve) and the local-GP
+              ensemble (16 experts of 512); dominance_pass at the box
+              sweeps' shapes against its plain version (see
+              surrogate_mo_phase; the calibrate run and its resume give
+              the "surrogate_mo" path of the kernels line, the 8192-point
+              asks the "surrogate_mo_big" path).
+ 14. service  calibrate_service at CONFIG: a 1024-individual GA init and a
+              3-round surrogate as two tenants of one ExplorationService
+              over make_init_pool(0.35, pool_devices=1) (some firing
+              retried), the GA tenant's best 128 ranked;
+              a second service on the same journal and cache (no
+              diffuse_evaporate launch, every record "cache", the same
+              results); the GA tenant bitwise equal to an inline streaming
+              init, the surrogate tenant to phase surrogate's first 24
+              evaluations (see service_phase; the "service" path).
+ 15. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -143,6 +167,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1700,6 +1725,446 @@ def mesh_phase(torch, dev, one_rank, init_inline) -> dict:
     return total
 
 
+# Jobs in flight on one pool contend for the host: on one H100 a job ran
+# 40-50 s while six ran and 5-6 s while two ran, against 1.4-1.7 s alone.
+# Phase surrogate_mo runs through the launcher's default pool,
+# make_init_pool(0.35) (3 workers x 2 slots), with its depth cut to batches
+# of 4 (n_init 8: 2 Sobol rounds and 1 qEHVI round) so that at most four
+# jobs run at once. The service's surrogate tenant must replay phase
+# surrogate's q 8, n_init 16, so the service runs through
+# make_init_pool(0.35, pool_devices=1), one device-set member of the card
+# with two jobs in flight, and its init is cut from the launcher's 2048 to
+# 1024 individuals (4 chunks of 256). Through the 3 x 2 pool the service
+# took 197 s, past what the script's time limit holds.
+MO_FLAGS = dict(rounds=3, q=4, n_init=8, replicates=3)
+SERVICE_FLAGS = dict(init_population=1024, init_chunk=256, rounds=3, q=8,
+                     n_init=16, replicates=3, pool_devices=1)
+
+
+def mo_synthetic(x):
+    """Three conflicting objectives of unit-square genomes x (n, 2), with a
+    ripple, so the per-objective GPs fit non-constant surfaces: the
+    history of phase surrogate_mo's legs (b) and (c), where CONFIG's
+    objectives (all at the 1000-tick cap) would give the GPs constants."""
+    import numpy as np
+    f1 = x[:, 0] ** 2 + (x[:, 1] - 1.0) ** 2
+    f2 = (x[:, 0] - 1.0) ** 2 + x[:, 1] ** 2
+    f3 = (x[:, 0] - 0.5) ** 2 + 0.2 * np.sin(7 * x[:, 1])
+    return np.stack([f1, f2, f3], 1).astype(np.float32)
+
+
+def launch_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def surrogate_mo_phase(torch, dev, results) -> dict:
+    """Phase ``surrogate_mo``: the multi-objective qEHVI surrogate. (a)
+    ``explore.calibrate_surrogate_mo(device="cuda", reduced=False)`` at
+    CONFIG, MO_FLAGS (2 Sobol rounds and 1 qEHVI round of 4, 3
+    replicates), through ``make_init_pool(0.35)``, the launcher's default
+    pool (3 workers x 2 slots): 12 evaluations, attempts > 12, a finite
+    front and hypervolume; then the
+    run stopped at its round-2 commit (a copy of that checkpoint) and
+    resumed inline: the history, front and hypervolume bit for bit the
+    pooled run's. Launch counts run from 0 at the calibrate run to the end
+    of the resume (the "surrogate_mo" path of the kernels line). (b) An
+    explorer told 64 points of
+    ``mo_synthetic``: one ask on the card and one on the CPU from the same
+    draws: equal archives, gains within 4 / (mc_samples x hv_samples) (a
+    posterior mean that moves by f32 rounding can flip a few sample-cell
+    comparisons), picks equal wherever the CPU's gain leads the next
+    slot's by more than that. (c) Archive scale: 8192 told points of
+    ``mo_synthetic`` (past n_max_exact 1024), the archive replayed from the
+    history, then one cold ask with big_method "inducing" (B4 and B7) and
+    one with "ensemble" (16 experts of 512; B4): finite batches, gains and
+    posteriors, walls; launch counts from 0 around (c) are the
+    "surrogate_mo_big" path. (d) B2 at the box
+    sweeps' shapes (128 box samples against a 64-row front, 4096 against
+    64 and 37 rows, +BIG rows in the front) against its plain version:
+    equal, timed beside the bound; into ``results``. Returns the two
+    paths' launch counts."""
+    import numpy as np
+
+    from repro_torch.evolution import nsga2
+    from repro_torch import checkpoint
+    from repro_torch.explore import moacq, surrogate
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import explore
+
+    t_phase = time.monotonic()
+    ops.reset_kernel_launch_counts()
+    # (a) the launcher at CONFIG through the faulty pool, then inline legs
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, result = explore.calibrate_surrogate_mo(
+            reduced=False, device="cuda", fault_rate=0.35, out_dir=out,
+            printer=lambda s: emit({"phase": "surrogate_mo", "log": s}),
+            **MO_FLAGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cal_launches = ops.kernel_launch_counts()
+        files = sorted(p.name for p in Path(out).iterdir())
+        # a run stopped after 2 rounds holds what the round-2 commit holds:
+        # resume a copy of it inline, with the settings it was written with
+        ck = Path(out) / "stopped"
+        shutil.copytree(Path(out) / "surrogate_checkpoints" / "step_00000002",
+                        ck / "step_00000002")
+        settings = checkpoint.restore(
+            str(ck), 2, {"x01": None, "y": None, "round": None,
+                         "settings": None})["settings"].item()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = moacq.run_surrogate_mo(
+            moacq.MOSurrogateConfig(bounds=explore.BOUNDS, n_objectives=3,
+                                    q=MO_FLAGS["q"],
+                                    n_init=MO_FLAGS["n_init"], seed=0),
+            explore.ants_mo_eval(False, MO_FLAGS["replicates"]),
+            rounds=MO_FLAGS["rounds"], checkpoint_dir=str(ck),
+            device="cuda", settings=settings)
+        torch.cuda.synchronize()
+        wall_inline = time.perf_counter() - t0
+        mo_launches = ops.kernel_launch_counts()
+    n_evals = MO_FLAGS["rounds"] * MO_FLAGS["q"]
+    require(len(res.objectives) == n_evals == len(result["objectives"])
+            and res.objectives.shape == (n_evals, 3),
+            f"surrogate_mo evaluations {res.objectives.shape}")
+    require(res.attempts > n_evals,
+            f"surrogate_mo: {res.attempts} attempts for {n_evals} "
+            f"evaluations at 35 % failures")
+    require(len(res.front_objectives) >= 1
+            and bool(np.isfinite(res.front_objectives).all())
+            and bool(((res.front_objectives >= 0)
+                      & (res.front_objectives <= 1000)).all())
+            and np.isfinite(res.hv) and res.hv > 0,
+            f"surrogate_mo front {res.front_objectives}, hv {res.hv}")
+    require({"surrogate_mo_result.json", "provenance.json"} <= set(files),
+            f"surrogate_mo outputs {files}")
+    require(resumed.resumed_rounds == 2 and resumed.rounds_done == 3
+            and np.array_equal(resumed.genomes, res.genomes)
+            and np.array_equal(resumed.objectives, res.objectives)
+            and np.array_equal(resumed.front_objectives,
+                               res.front_objectives)
+            and resumed.hv == res.hv,
+            "surrogate_mo stopped after 2 rounds and resumed inline differs "
+            "from the pooled run")
+    for k in ("diffuse_evaporate", "dominance_pass", "gp_sqdist"):
+        require(mo_launches[k] > 0, f"surrogate_mo path: no {k} launch "
+                f"({mo_launches})")
+    emit({"phase": "surrogate_mo", "config": "CONFIG", **MO_FLAGS,
+          "fault_rate": 0.35,
+          "pool_members": "3 x LocalEnvironment, 2 slots each",
+          "wall_s": wall, "evaluations": n_evals,
+          "evaluations_per_hour": n_evals / wall * 3600,
+          "attempts": res.attempts, "front_size": len(res.front_objectives),
+          "hypervolume": res.hv, "launches": cal_launches,
+          "resumed_from_round_2_inline_wall_s": wall_inline,
+          "resumed_equal_bitwise": True,
+          "launches_with_resume": mo_launches})
+
+    # (b) the card against the CPU on a history whose objectives vary
+    bcfg = moacq.MOSurrogateConfig(bounds=((0.0, 1.0), (0.0, 1.0)),
+                                   n_objectives=3, q=8, n_init=16, seed=0)
+    rng = np.random.default_rng(5)
+    hx = rng.random((64, 2)).astype(np.float32)
+    asks = {}
+    for where in ("cpu", "cuda"):
+        ex = moacq.MOSurrogateExplorer(bcfg, device=where)
+        ex.load_state_arrays({"x01": hx, "y": mo_synthetic(hx),
+                              "round": np.int32(8)})
+        draws = moacq.draw_ask(bcfg, ex.round)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = ex.ask(draws)
+        torch.cuda.synchronize()
+        asks[where] = (batch, ex.last_gains,
+                       [t.cpu() for t in ex.archive],
+                       time.perf_counter() - t0)
+    (bc, gc, ac, tc), (bg, gg, ag, tg) = asks["cpu"], asks["cuda"]
+    gain_tol = 4.0 / (bcfg.mc_samples * bcfg.hv_samples)
+    require(all(torch.equal(a, b) for a, b in zip(ac, ag)),
+            "surrogate_mo: the archive on the card differs from the CPU's")
+    gain_err = float(np.abs(gg - gc).max())
+    require(gain_err <= gain_tol,
+            f"surrogate_mo: gains card {gg.tolist()} vs CPU {gc.tolist()}")
+    decided = [s for s in range(bcfg.q)
+               if s == bcfg.q - 1 or gc[s] - gc[s + 1] > gain_tol]
+    pick_err = max(float(np.abs(bg[s] - bc[s]).max()) for s in decided)
+    require(pick_err <= 1e-6,
+            f"surrogate_mo: picks card {bg.tolist()} vs CPU {bc.tolist()}")
+    emit({"phase": "surrogate_mo", "what": "ask_card_vs_cpu", "history": 64,
+          "gains_cuda": gg.tolist(), "gains_cpu": gc.tolist(),
+          "gain_max_abs_err": gain_err, "gain_tolerance": gain_tol,
+          "slots_compared": decided, "pick_max_abs_err": pick_err,
+          "archives_equal": True, "ask_s": {"cpu": tc, "cuda": tg}})
+
+    # (c) archive scale: 8192 told points, the inducing and ensemble fits
+    n_arch = 8192
+    hx = rng.random((n_arch, 2)).astype(np.float32)
+    hy = mo_synthetic(hx)
+    icfg = dataclasses.replace(bcfg, big_method="inducing")
+    ecfg = dataclasses.replace(bcfg, big_method="ensemble", expert_size=512)
+    ops.reset_kernel_launch_counts()
+    ex = moacq.MOSurrogateExplorer(icfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ex.load_state_arrays({"x01": hx, "y": hy,
+                          "round": np.int32(n_arch // bcfg.q)})
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    big = {}
+    for name, c in (("inducing", icfg), ("ensemble", ecfg)):
+        e = moacq.MOSurrogateExplorer(c, device="cuda")
+        # the replayed archive serves both (it does not depend on the fit)
+        e.x01, e.y, e.round, e.archive = ex.x01, ex.y, ex.round, ex.archive
+        before = ops.kernel_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = e.ask()
+        torch.cuda.synchronize()
+        ask_s = time.perf_counter() - t0
+        launches = launch_delta(ops.kernel_launch_counts(), before)
+        st = surrogate.gp_fit(c.gp_config(), torch.from_numpy(hx).to(dev),
+                              torch.from_numpy(hy[:, 0]).to(dev))
+        mean, var = surrogate.gp_mean_var(
+            c.gp_config(), st, torch.from_numpy(
+                ((batch - e._lo) / e._span).astype(np.float32)).to(dev))
+        require(type(st).__name__ == {"inducing": "InducingGPState",
+                                      "ensemble": "EnsembleGPState"}[name],
+                f"surrogate_mo {name}: state {type(st).__name__}")
+        require(batch.shape == (8, 2) and bool(np.isfinite(batch).all())
+                and bool(((batch >= 0) & (batch <= 1)).all())
+                and bool(np.isfinite(e.last_gains).all())
+                and bool(torch.isfinite(mean).all() and (var > 0).all()),
+                f"surrogate_mo {name} at {n_arch}: batch {batch.tolist()}, "
+                f"gains {e.last_gains}")
+        require(launches["gp_sqdist"] >= 3
+                and (name == "ensemble" or launches["tri_solve"] >= 3),
+                f"surrogate_mo {name} ask launches {launches}")
+        big[name] = {"cold_ask_s": ask_s, "launches": launches,
+                     "gains": e.last_gains.tolist(),
+                     "lengthscale_objective_0": float(st.lengthscale)}
+        if name == "ensemble":
+            big[name]["experts"] = int(st.x.shape[0])
+    big_launches = ops.kernel_launch_counts()
+    for k in ("dominance_pass", "gp_sqdist", "tri_solve"):
+        require(big_launches[k] > 0, f"surrogate_mo_big path: no {k} "
+                f"launch ({big_launches})")
+    emit({"phase": "surrogate_mo", "what": "archive_scale",
+          "history": n_arch, "n_max_exact": bcfg.n_max_exact,
+          "n_inducing": bcfg.n_inducing, "expert_size": 512,
+          "archive_replay_s": replay_s, "merges_replayed": n_arch // bcfg.q,
+          **big, "launches": big_launches})
+
+    # (d) B2 at the box sweeps' shapes against its plain version
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows_out = []
+    for ni, nj, n_big in ((128, 64, 24), (4096, 64, 16), (4096, 37, 0)):
+        u = torch.rand((ni, 3), generator=gen, device=dev) * 2.0 - 1.0
+        front = torch.randn((nj, 3), generator=gen, device=dev) * 0.5
+        front[nj - n_big:] = nsga2.BIG
+        kc, kb = ops.dominance_pass(u, front)
+        pc, pb = ref.dominance_pass_ref(u, front)
+        torch.cuda.synchronize()
+        require(torch.equal(kc, pc) and torch.equal(kb, pb),
+                f"dominance_pass equal at the box sweep {ni} x {nj}")
+        require(int((kc > 0).sum()) > 0, f"box sweep {ni} x {nj}: no cell "
+                f"dominated")
+        words = -(-nj // 32)
+        n_bytes = (ni + nj) * 3 * 4 + ni * 4 + ni * words * 4
+        b_ms, b_by = bound_ms(n_bytes, ni * nj * 2 * 3)
+        kt, _ = turns_ms(torch, lambda: ops.dominance_pass(u, front), None,
+                         inner=10, hold_cycles=HOLD_CYCLES)
+        pt, _ = turns_ms(torch, lambda: ref.dominance_pass_ref(u, front),
+                         None, reps=5, inner=3)
+        r = {"kernel": "dominance_pass", "shape": [ni, nj, 3],
+             "big_rows": n_big, "equal": True, "max_abs_err": 0.0,
+             "cells_dominated": int((kc > 0).sum()),
+             "timed_by": "cuda_events_queued", "ms": kt["median"],
+             "ms_min_max": [kt["min"], kt["max"]], "plain_ms": pt["median"],
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        results[("dominance_pass_box", ni, nj)] = r
+        rows_out.append(r)
+    emit({"phase": "surrogate_mo", "what": "kernels_at_box_sweep_shapes",
+          "rows": rows_out})
+    emit({"phase": "surrogate_mo", "seconds": time.monotonic() - t_phase,
+          "launches": {"surrogate_mo": mo_launches,
+                       "surrogate_mo_big": big_launches}})
+    return mo_launches, big_launches
+
+
+def service_phase(torch, dev, sur_res) -> dict:
+    """Phase ``service``: the exploration service with its two tenants.
+    (a) ``explore.calibrate_service(device="cuda", reduced=False)`` at
+    CONFIG, SERVICE_FLAGS (the GA tenant's 1024 individuals in chunks of
+    256, the surrogate tenant's 3 rounds of 8, 3 replicates), through
+    ``make_init_pool(0.35, pool_devices=1)`` (one device-set member of the
+    card, two jobs in flight); then the GA tenant's best 128 by NSGA-II
+    truncation (``ga.select_top_streaming``, B2), as an island run would be
+    seeded.
+    Launch counts from 0 around both (the "service" path of the kernels
+    line). The provenance records must show a firing that the pool retried
+    (more than one attempt). Each GA chunk's time in the queue (from the
+    service's start, when the GA tenant submits every chunk, to the start
+    of its execution: the record's completion offset less its wall) is
+    reported beside its execution wall and its attempts' walls.
+    (b) A second service on the same journal and cache,
+    resubmitting both tenants: no diffuse_evaporate launch, every record
+    mode "cache", the same results bit for bit. Then the GA tenant's
+    objectives and genomes against an inline ``evaluate_population_
+    streaming`` of the same 1024 at chunk 256, and its picks against the
+    inline run's, bit for bit; the surrogate tenant's history against the
+    first 24 rows of ``sur_res`` (phase surrogate's run: the same
+    SurrogateConfig, seed 0, q-EI), bit for bit. (c) The queue's counts,
+    the re-prioritizations and each tenant's wall."""
+    import numpy as np
+
+    from repro_torch.configs.ants_netlogo import CONFIG
+    from repro_torch.evolution import ga
+    from repro_torch.kernels import ops
+    from repro_torch.launch import explore
+
+    t_phase = time.monotonic()
+    ga_cfg = explore.NSGA2Config(mu=16, genome_dim=2, bounds=explore.BOUNDS,
+                                 n_objectives=3)
+    k_top = 128
+    with tempfile.TemporaryDirectory() as out:
+        ops.reset_kernel_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tenants, result = explore.calibrate_service(
+            reduced=False, device="cuda", fault_rate=0.35, out_dir=out,
+            printer=lambda s: emit({"phase": "service", "log": s}),
+            **SERVICE_FLAGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gres, sres = tenants["ga"], tenants["surrogate"]
+        top_g, top_o = ga.select_top_streaming(ga_cfg, gres.genomes,
+                                               gres.objectives, k_top,
+                                               device=dev)
+        torch.cuda.synchronize()
+        svc_launches = ops.kernel_launch_counts()
+        files = sorted(p.name for p in Path(out).iterdir())
+        modes, firings = {}, {}
+        for eid in ("ga-init", "surrogate"):
+            prov = json.loads((Path(out) / f"provenance_{eid}.json")
+                              .read_text())
+            modes[eid] = sorted({t["mode"] for t in prov["tasks"]})
+            # the service stamps a record's started_s when the firing
+            # completes; wall_s is its execution through the pool
+            firings[eid] = sorted(
+                ({"queue_seq": t["capsule"],
+                  "queued_s": t["started_s"] - t["wall_s"],
+                  "wall_s": t["wall_s"],
+                  "attempts": len(t["attempts"] or ()),
+                  "attempt_walls_s": [a["wall_s"]
+                                      for a in t["attempts"] or ()],
+                  "outcomes": [a["outcome"] for a in t["attempts"] or ()]}
+                 for t in prov["tasks"]), key=lambda f: f["queued_s"])
+
+        # (b) a restarted service on the same journal and cache
+        ops.reset_kernel_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, result2 = explore.calibrate_service(
+            reduced=False, device="cuda", fault_rate=0.35, out_dir=out,
+            printer=lambda s: emit({"phase": "service", "log": s}),
+            **SERVICE_FLAGS)
+        torch.cuda.synchronize()
+        wall_restart = time.perf_counter() - t0
+        restart_launches = ops.kernel_launch_counts()
+        restart_modes = {}
+        for eid in ("ga-init", "surrogate"):
+            prov = json.loads((Path(out) / f"provenance_{eid}.json")
+                              .read_text())
+            restart_modes[eid] = sorted({t["mode"] for t in prov["tasks"]})
+    n_chunks = -(-SERVICE_FLAGS["init_population"]
+                 // SERVICE_FLAGS["init_chunk"])
+    n_sur = SERVICE_FLAGS["rounds"] * SERVICE_FLAGS["q"]
+    require({"service_result.json", "provenance_ga-init.json",
+             "provenance_surrogate.json", "queue.jsonl", "cache"}
+            <= set(files), f"service outputs {files}")
+    require(modes == {"ga-init": ["service"], "surrogate": ["service"]},
+            f"service record modes {modes}")
+    retried = {eid: sum(f["attempts"] > 1 for f in fs)
+               for eid, fs in firings.items()}
+    n_attempts = {eid: sum(f["attempts"] for f in fs)
+                  for eid, fs in firings.items()}
+    require(sum(retried.values()) >= 1
+            and all(f["attempts"] >= 1 for fs in firings.values()
+                    for f in fs),
+            f"service at 35 % failures: no firing retried ({firings})")
+    require(result["queue"] == {"pending": 0, "running": 0,
+                                "done": n_chunks + n_sur, "failed": 0},
+            f"service queue {result['queue']}")
+    require(restart_launches["diffuse_evaporate"] == 0,
+            f"the restarted service ran the model: {restart_launches}")
+    require(restart_modes == {"ga-init": ["cache"], "surrogate": ["cache"]},
+            f"the restarted service's record modes {restart_modes}")
+    g2, s2 = again["ga"], again["surrogate"]
+    require(np.array_equal(g2.objectives, gres.objectives)
+            and np.array_equal(s2.genomes, sres.genomes)
+            and np.array_equal(s2.objectives, sres.objectives),
+            "the restarted service's results differ")
+    for k in ("diffuse_evaporate", "dominance_pass", "gp_sqdist"):
+        require(svc_launches[k] > 0, f"service path: no {k} launch "
+                f"({svc_launches})")
+
+    # the GA tenant against the inline streaming init, the surrogate tenant
+    # against phase surrogate's run
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inline = ga.evaluate_population_streaming(
+        ga_cfg, explore.ants_eval_fn(CONFIG, SERVICE_FLAGS["replicates"]), 0,
+        n_total=SERVICE_FLAGS["init_population"],
+        chunk=SERVICE_FLAGS["init_chunk"], device=dev)
+    torch.cuda.synchronize()
+    wall_inline = time.perf_counter() - t0
+    in_g, in_o = ga.select_top_streaming(ga_cfg, inline.genomes,
+                                         inline.objectives, k_top,
+                                         device=dev)
+    require(np.array_equal(gres.objectives, inline.objectives)
+            and np.array_equal(gres.genomes, inline.genomes),
+            "the GA tenant differs from the inline streaming init")
+    require(torch.equal(top_g, in_g) and torch.equal(top_o, in_o),
+            "the GA tenant's picks differ from the inline run's")
+    require(np.array_equal(sres.genomes, sur_res.genomes[:n_sur])
+            and np.array_equal(sres.objectives, sur_res.objectives[:n_sur]),
+            "the surrogate tenant differs from phase surrogate's first "
+            f"{n_sur} evaluations")
+    emit({"phase": "service", "config": "CONFIG", **SERVICE_FLAGS,
+          "fault_rate": 0.35, "wall_s": wall,
+          "pool_members": "1 x DeviceEnvironment(cuda)",
+          "ga_tenant": {"wall_s": gres.wall_s, "attempts": gres.attempts,
+                        "chunks": gres.chunks_done,
+                        "pool_attempts": n_attempts["ga-init"],
+                        "firings_retried": retried["ga-init"],
+                        "chunks_queued_and_run": firings["ga-init"],
+                        "evaluations_per_hour":
+                            SERVICE_FLAGS["init_population"] / gres.wall_s
+                            * 3600,
+                        "equal_to_inline": True,
+                        "inline_wall_s": wall_inline,
+                        "top_k": k_top, "top_k_equal": True},
+          "surrogate_tenant": {"wall_s": sres.wall_s,
+                               "repriorities": sres.repriorities,
+                               "attempts": sres.attempts,
+                               "pool_attempts": n_attempts["surrogate"],
+                               "firings_retried": retried["surrogate"],
+                               "slot_queued_s": [f["queued_s"] for f in
+                                                 firings["surrogate"]],
+                               "slot_wall_s": [f["wall_s"] for f in
+                                               firings["surrogate"]],
+                               "best_objective": sres.best_objective,
+                               "equal_to_phase_surrogate": True},
+          "queue": result["queue"], "launches": svc_launches,
+          "restart": {"wall_s": wall_restart, "launches": restart_launches,
+                      "record_modes": restart_modes,
+                      "results_equal": True}})
+    emit({"phase": "service", "seconds": time.monotonic() - t_phase})
+    return svc_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1764,7 +2229,8 @@ def main() -> int:
 
     sms = build.sm_count(torch.cuda.current_device())
     results = {}
-    for n in (640, 20480):
+    # 320 lanes: a mesh rank's block of the calibrate run (phase mesh)
+    for n in (320, 640, 20480):
         chem, rate, evap = field(n)
         got = diffusion.diffuse_evaporate(chem, rate, evap)
         plain = ref.diffuse_evaporate_ref(chem, rate, evap)
@@ -2292,6 +2758,7 @@ def main() -> int:
         sur_launches = ops.kernel_launch_counts()
         files = sorted(p.name for p in Path(out).iterdir())
     n_evals = sflags["rounds"] * sflags["q"]
+    sur_res = res
     require(len(res.objectives) == n_evals == len(result["objectives"]),
             f"surrogate evaluations {len(res.objectives)} != {n_evals}")
     require(sur_launches["gp_sqdist"] >= 2,
@@ -2584,7 +3051,17 @@ def main() -> int:
 
     stamp()
 
-    # -- 13. the kernels line, the card, the contract line -------------------
+    # -- 13. the multi-objective qEHVI surrogate and the local-GP ensemble
+    mo_launches, mo_big_launches = surrogate_mo_phase(torch, dev, results)
+
+    stamp()
+
+    # -- 14. the exploration service: two tenants over one pool
+    svc_launches = service_phase(torch, dev, sur_res)
+
+    stamp()
+
+    # -- 15. the kernels line, the card, the contract line -------------------
     # (kernel, result key, source, TPU kernel, the path whose run gives the
     # launches); every path's counts are listed beside it
     by_path = {"ranking": rank_launches,
@@ -2592,7 +3069,9 @@ def main() -> int:
                "surrogate": sur_launches,
                "surrogate_big": big_launches, "gp_chol": gp_launches,
                "flash": flash_launches, "dsl": dsl_launches,
-               "mesh": mesh_launches}
+               "mesh": mesh_launches, "surrogate_mo": mo_launches,
+               "surrogate_mo_big": mo_big_launches,
+               "service": svc_launches}
     rows = (
         ("diffuse_evaporate", ("diffuse_evaporate", 640), "diffusion.cu",
          "src/repro/kernels/diffusion.py:89", "calibrate"),

@@ -1,7 +1,6 @@
 """The paper's primary contribution: a workflow engine for distributed model
 exploration — tasks, dataflow, hooks, environments, and the DSL. Ported from
-``repro.core``, as far as the port has come (no mesh environment, no task
-queue or service yet)."""
+``repro.core``, as far as the port has come (no mesh environment yet)."""
 from repro_torch.core.prototype import Val, Context  # noqa
 from repro_torch.core.task import Task, PyTask, TorchTask, TaskError  # noqa
 from repro_torch.core.workflow import Capsule, Workflow, Transition  # noqa
@@ -21,4 +20,6 @@ from repro_torch.core.faults import (FaultSpec, InjectedFailure,  # noqa
 from repro_torch.core.cache import (TaskCache, DEFAULT_CACHE,  # noqa
                                     fingerprint_task, inputs_digest)
 from repro_torch.core.scheduler import RunRecord, TaskRecord  # noqa
+from repro_torch.core.taskqueue import TaskQueue, QueueEntry  # noqa
+from repro_torch.core.service import ExplorationService  # noqa
 from repro_torch.core.dsl import Puzzle, puzzle, explore, aggregate  # noqa

@@ -282,11 +282,15 @@ def evaluate_population_streaming(
         chunk: int = 4096, environment=None, checkpoint_dir: str = None,
         checkpoint_every: int = 8, stop_after_chunks: Optional[int] = None,
         record=None, progress: Callable[[int, int], None] = None,
-        service=None, device="cuda",
+        service=None, experiment_id: str = "ga-init", device="cuda",
         settings: Optional[str] = None) -> StreamingResult:
     """Evaluate an ``n_total``-individual initial population in chunks of
     ``chunk`` on ``device``, inline (``environment=None``: the serial
-    baseline) or through a (fault-injected) Environment or EnvironmentPool.
+    baseline), through a (fault-injected) Environment or EnvironmentPool,
+    or as tenant ``experiment_id`` of a shared ``ExplorationService``
+    (``service=``, not with ``environment=``: the chunks then share the
+    service's pool with other tenants, and completed chunks are memoized
+    across driver restarts by the service's cache).
 
     ``eval_fn(generator, genomes (n, D)) -> (n, M)`` is the fitness batch.
     With ``checkpoint_dir`` the contiguous completed prefix commits there
@@ -299,10 +303,8 @@ def evaluate_population_streaming(
     per-attempt trace, or "cache" for a chunk restored from the checkpoint.
     ``progress(chunks_done, chunks_total)`` is called after each chunk.
     """
-    if service is not None:
-        raise NotImplementedError(
-            "evaluate_population_streaming(service=...) needs the "
-            "exploration service, which is not ported yet (ROADMAP A6)")
+    if service is not None and environment is not None:
+        raise ValueError("pass either environment= or service=, not both")
     from repro_torch import checkpoint
     from repro_torch.core.cache import inputs_digest
     from repro_torch.core.prototype import Context
@@ -372,7 +374,8 @@ def evaluate_population_streaming(
     if stop_after_chunks is not None:
         todo = todo[:max(0, stop_after_chunks - resumed)]
     attempts = 0
-    env_name = environment.name if environment is not None else "inline"
+    env_name = (environment.name if environment is not None
+                else getattr(service, "name", None) or "inline")
 
     def land(i, out, meta, n_done):
         nonlocal attempts
@@ -391,7 +394,19 @@ def evaluate_population_streaming(
         if progress:
             progress(resumed + n_done, n_chunks)
 
-    if environment is None:
+    if service is not None:
+        if todo:
+            tids = service.submit_tasks(
+                experiment_id,
+                [(task, Context(chunk=i, size=sizes[i])) for i in todo])
+            tid_to_i = dict(zip(tids, todo))
+            for n_done, (tid, out) in enumerate(
+                    service.as_completed(experiment_id, tids), 1):
+                if out is None:
+                    service.result(experiment_id, tid)  # raises the error
+                land(tid_to_i[tid], out, {"retries": 0, "wall_s": 0.0},
+                     n_done)
+    elif environment is None:
         for n_done, i in enumerate(todo, 1):
             a_t0 = time.monotonic()
             out = task.run(Context(chunk=i, size=sizes[i]))

@@ -1,5 +1,5 @@
 """Archive-scale GP fits past the O(N^3) wall of ``gp_fit``, ported from
-``repro.explore.bigfit`` (the inducing-point path).
+``repro.explore.bigfit``: the inducing-point path and the local-GP ensemble.
 
 **Inducing points** (``fit_inducing`` / ``update_inducing``): an SGPR-style
 sparse fit on m = ``cfg.n_inducing`` deterministically strided history
@@ -12,14 +12,19 @@ distances go through the hand-written ``gp_sqdist`` kernel and the (m, n)
 cross-covariance solve through the hand-written blocked ``tri_solve``
 kernel (``kernels.ops``), at the sites where the reference calls them.
 
-Determinism: every fit is a pure function of (cfg, history) — the inducing
-set and the lengthscale subsample are index arithmetic, no RNG. The
-incremental path re-associates the A A^T accumulation, so a resumed run
-(which cold-refits) agrees with an uninterrupted one to float tolerance,
-not bitwise.
+**Local ensemble** (``fit_ensemble``): kd-style alternating-dimension median
+splits partition history into E equal cells of ``cfg.expert_size``; one
+exact GP per cell (one batched Cholesky over the cells), and prediction
+merges the ``cfg.n_experts_predict`` nearest experts by generalized
+product-of-experts (precision-weighted, weights 1/k). E = 1 is exactly the
+dense GP. The lengthscale search runs on the ``gp_sqdist`` kernel; each
+cell's assembly is plain torch, as the reference's.
 
-The reference's local-GP ensemble (``big_method="ensemble"``) is not ported
-yet.
+Determinism: every fit is a pure function of (cfg, history) — the inducing
+set, the lengthscale subsample and the kd partition are index arithmetic,
+no RNG. The incremental path re-associates the A A^T accumulation, so a
+resumed run (which cold-refits) agrees with an uninterrupted one to float
+tolerance, not bitwise.
 """
 from __future__ import annotations
 
@@ -54,6 +59,20 @@ class InducingGPState(NamedTuple):
     y_std: torch.Tensor        # ()
     lengthscale: torch.Tensor  # ()
     best: torch.Tensor         # ()     standardized incumbent
+
+
+class EnsembleGPState(NamedTuple):
+    """E local experts over a kd partition of history (equal cells, pad
+    rows decoupled to identity), merged at prediction by gPoE."""
+    x: torch.Tensor            # (E, s, d) cell inputs
+    valid: torch.Tensor        # (E, s) f32 row validity
+    chol: torch.Tensor         # (E, s, s)
+    alpha: torch.Tensor        # (E, s)
+    centroid: torch.Tensor     # (E, d) valid-row centroids
+    y_mean: torch.Tensor       # ()
+    y_std: torch.Tensor        # ()
+    lengthscale: torch.Tensor  # ()
+    best: torch.Tensor         # ()
 
 
 def inducing_state_from_arrays(tree, device="cuda") -> InducingGPState:
@@ -207,11 +226,129 @@ def mean_var_inducing(cfg, state: InducingGPState, xq):
     return mean, var
 
 
+# ---------------------------------------------------------------------------
+# local-GP ensemble path
+# ---------------------------------------------------------------------------
+def _kd_order(x, valid, levels: int):
+    """Deterministic kd-style ordering: ``levels`` rounds of alternating-
+    dimension median splits (stable argsort halving). Invalid (pad) rows
+    sort last, so cells are contiguous, spatially coherent runs with the
+    pads at the tail. Returns a permutation of arange(n_p)."""
+    n_p, d = x.shape
+    idx = torch.arange(n_p, device=x.device)
+    inf = _f32(float("inf"), x.device)
+    for lvl in range(levels):
+        groups = idx.reshape(2 ** lvl, -1)
+        key = torch.where(valid[groups] > 0.5, x[groups, lvl % d], inf)
+        order = torch.argsort(key, dim=1, stable=True)
+        idx = torch.gather(groups, 1, order).reshape(-1)
+    return idx
+
+
+def fit_ensemble(cfg, x, y, *, lengthscale=None) -> EnsembleGPState:
+    """Partition history into E = 2^ceil(log2(n / expert_size)) equal cells
+    of ``cfg.expert_size`` by kd median splits and fit one exact GP per cell
+    (one batched Cholesky). Pad rows are decoupled to identity covariance
+    rows with zero targets, so alpha there is exactly zero and they never
+    leak into predictions. n <= expert_size gives E = 1: the dense GP."""
+    n, dim = x.shape
+    dev = x.device
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    s = cfg.expert_size
+    levels = max(0, (max(1, -(-n // s)) - 1).bit_length())
+    e = 2 ** levels
+    n_p = e * s
+    xp = torch.zeros((n_p, dim), dtype=torch.float32, device=dev)
+    xp[:n] = x
+    yp = torch.zeros((n_p,), dtype=torch.float32, device=dev)
+    yp[:n] = y
+    valid = (torch.arange(n_p, device=dev) < n).to(torch.float32)
+
+    ls = select_lengthscale(cfg, x, y) if lengthscale is None \
+        else _f32(lengthscale, dev)
+    y_mean = y.mean()
+    y_std = torch.clamp_min(y.std(correction=0), 1e-8)
+
+    order = _kd_order(xp, valid, levels)
+    xe = xp[order].reshape(e, s, dim)
+    ye = ((yp[order] - y_mean) / y_std).reshape(e, s)
+    ve = valid[order].reshape(e, s)
+    nugget = cfg.noise + cfg.jitter
+    # every cell at once: plain assembly, as the reference's vmapped cells
+    k = kref.gp_kernel_fn(cfg.kernel, kref.gp_sqdist_ref(xe, xe), ls, 1.0)
+    eye = torch.eye(s, dtype=torch.float32, device=dev)
+    pair = ve[:, :, None] * ve[:, None, :]
+    k = torch.where(pair > 0.5, k + nugget * eye, eye)
+    chol = cholesky_or_nan(k)
+    alpha = torch.cholesky_solve((ye * ve)[..., None], chol)[..., 0]
+    cnt = torch.clamp_min(ve.sum(1), 1.0)
+    centroid = (xe * ve[..., None]).sum(1) / cnt[:, None]
+    return EnsembleGPState(x=xe, valid=ve, chol=chol, alpha=alpha,
+                           centroid=centroid, y_mean=y_mean, y_std=y_std,
+                           lengthscale=ls, best=(y.min() - y_mean) / y_std)
+
+
+def _nearest_experts(cfg, state: EnsembleGPState, xq):
+    """Indices (..., k) of the k experts whose centroids lie nearest the
+    batch centroid of xq (..., q, d), nearest first. The reference takes
+    ``lax.top_k(-d2, k)``, which puts the lower index first among ties;
+    ``torch.topk`` promises no order among ties, so this takes the first k
+    of a stable ascending sort of d2: the same experts in the same order."""
+    k_sel = min(cfg.n_experts_predict, state.x.shape[0])
+    qc = xq.mean(-2)
+    d2 = ((state.centroid - qc[..., None, :]) ** 2).sum(-1)      # (..., E)
+    return torch.argsort(d2, dim=-1, stable=True)[..., :k_sel]
+
+
+def _expert_parts(cfg, state: EnsembleGPState, xq):
+    """Each selected expert's mean (..., k, q) and V = L^-1 k_s (..., k, s,
+    q) at xq (..., q, d), cross-covariances in plain torch (the acquisition
+    ascent differentiates through them)."""
+    sel = _nearest_experts(cfg, state, xq)
+    xc, vc = state.x[sel], state.valid[sel]           # (..., k, s, d/-)
+    ks = kref.gp_kernel_fn(
+        cfg.kernel, kref.gp_sqdist_ref(xq[..., None, :, :], xc),
+        state.lengthscale, 1.0) * vc[..., None, :]     # (..., k, q, s)
+    mean = (ks @ state.alpha[sel][..., None])[..., 0]
+    v = _solve_lower(state.chol[sel], ks.transpose(-1, -2))
+    return mean, v
+
+
+def posterior_ensemble(cfg, state: EnsembleGPState, xq):
+    """Joint posterior of xq (..., q, d) from the k nearest experts (by
+    batch centroid to cell centroid), merged by generalized product-of-
+    experts with uniform weights 1/k: precision = mean of the expert
+    precisions, mean precision-weighted. k = 1 (E = 1) is exactly the single
+    expert."""
+    means, v = _expert_parts(cfg, state, xq)
+    kq = kref.gp_kernel_fn(cfg.kernel, kref.gp_sqdist_ref(xq, xq),
+                           state.lengthscale, 1.0)[..., None, :, :]
+    covs = kq - v.transpose(-1, -2) @ v
+    covs = 0.5 * (covs + covs.transpose(-1, -2))
+    q = xq.shape[-2]
+    jit_eye = 10.0 * cfg.jitter * torch.eye(q, dtype=torch.float32,
+                                           device=xq.device)
+    precs = torch.linalg.inv(covs + jit_eye)                 # (..., k, q, q)
+    prec = precs.mean(-3)
+    cov = torch.linalg.inv(prec + jit_eye)
+    mean = (cov @ (precs @ means[..., None]).mean(-3))[..., 0]
+    return mean, 0.5 * (cov + cov.transpose(-1, -2))
+
+
+def mean_var_ensemble(cfg, state: EnsembleGPState, xq):
+    """Marginal gPoE merge — per-point precisions only."""
+    means, v = _expert_parts(cfg, state, xq)
+    vars_ = torch.clamp_min(1.0 - (v * v).sum(-2), cfg.jitter)
+    var = 1.0 / (1.0 / vars_).mean(-2)
+    mean = (means / vars_).mean(-2) * var
+    return mean, torch.clamp_min(var, cfg.jitter)
+
+
 def fit_big(cfg, x, y):
     """Route the archive-scale fit by ``cfg.big_method``."""
     if cfg.big_method == "ensemble":
-        raise NotImplementedError(
-            "big_method='ensemble' (local-GP ensemble) is not ported yet")
+        return fit_ensemble(cfg, x, y)
     if cfg.big_method != "inducing":
         raise ValueError(f"unknown big_method: {cfg.big_method!r}")
     return fit_inducing(cfg, x, y)

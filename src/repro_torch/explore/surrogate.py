@@ -7,7 +7,7 @@ ask/tell engine with q-EI / q-UCB batch acquisition, ported from
   hand-written ``gp_sqdist`` kernel (``kernels.ops``); the lengthscale is
   chosen from a fixed grid by marginal likelihood (one batched Cholesky over
   the grid). Histories past ``cfg.n_max_exact`` go to the archive-scale
-  inducing-point fit (``explore/bigfit.py``).
+  fits (``explore/bigfit.py``: inducing points or a local-GP ensemble).
 - **Batch acquisition** (``q_ei`` / ``q_ucb``): Monte-Carlo over the joint
   posterior of the q-point batch. Column i of the normals depends only on
   (seed, round, slot i), so nested batches share their common slots' draws
@@ -17,8 +17,9 @@ ask/tell engine with q-EI / q-UCB batch acquisition, ported from
   starts a batch dimension under autograd.
 - **Ask/tell** (:class:`SurrogateExplorer`) and the asynchronous loop
   (``run_surrogate``), which streams each round's batch through an
-  ``Environment``/``EnvironmentPool`` and re-scores the still-queued
-  candidates as results land (OSPREY-style; dispatch order only).
+  ``Environment``/``EnvironmentPool``, or as one tenant of an
+  ``ExplorationService``, and re-scores the still-queued candidates as
+  results land (OSPREY-style; dispatch order only).
 
 Randomness is split into *draws* and *applies*: ``draw_proposal_noise``
 draws a round's starts and normals on the host from generators seeded by
@@ -70,9 +71,12 @@ class SurrogateConfig:
     acquisition: "qei" or "qucb".
     seed: master seed — the whole trajectory is a pure function of it.
     n_max_exact: largest history the dense O(n^3) fit handles; beyond it
-        ``gp_fit`` routes to the inducing-point path (explore/bigfit.py).
-    big_method: "inducing" ("ensemble" is not ported yet).
-    n_inducing: inducing-set size m.
+        ``gp_fit`` routes to the archive-scale path (explore/bigfit.py).
+    big_method: "inducing" (SGPR, incremental tell) or "ensemble" (local
+        experts, refit per round).
+    n_inducing: inducing-set size m of the SGPR path.
+    expert_size / n_experts_predict: local-ensemble cell size and how many
+        nearest experts merge at prediction.
     """
     bounds: Tuple[Tuple[float, float], ...]
     kernel: str = "matern52"
@@ -91,6 +95,8 @@ class SurrogateConfig:
     n_max_exact: int = 1024
     big_method: str = "inducing"
     n_inducing: int = 512
+    expert_size: int = 512
+    n_experts_predict: int = 4
 
     @property
     def dim(self) -> int:
@@ -205,6 +211,8 @@ def gp_posterior(cfg: SurrogateConfig, state, xq):
     from repro_torch.explore import bigfit
     if isinstance(state, bigfit.InducingGPState):
         return bigfit.posterior_inducing(cfg, state, xq)
+    if isinstance(state, bigfit.EnsembleGPState):
+        return bigfit.posterior_ensemble(cfg, state, xq)
     ks = kref.gp_kernel_fn(cfg.kernel, kref.gp_sqdist_ref(xq, state.x),
                            state.lengthscale, 1.0)           # (..., m, n)
     mean = ks @ state.alpha
@@ -221,6 +229,8 @@ def gp_mean_var(cfg: SurrogateConfig, state, xq):
     from repro_torch.explore import bigfit
     if isinstance(state, bigfit.InducingGPState):
         return bigfit.mean_var_inducing(cfg, state, xq)
+    if isinstance(state, bigfit.EnsembleGPState):
+        return bigfit.mean_var_ensemble(cfg, state, xq)
     ks = kref.gp_kernel_fn(cfg.kernel, kref.gp_sqdist_ref(xq, state.x),
                            state.lengthscale, 1.0)
     mean = ks @ state.alpha
@@ -448,7 +458,7 @@ class SurrogateExplorer:
             if n > cfg.n_max_exact:
                 # archive scale: reuse the incrementally-updated state;
                 # cold fit only when there is none yet (first crossing,
-                # resume)
+                # resume, ensemble method)
                 if self._big_state is None:
                     self._big_state = gp_fit(cfg, self._t(self.x01),
                                              self._t(self.y))
@@ -482,6 +492,8 @@ class SurrogateExplorer:
         if isinstance(self._big_state, bigfit.InducingGPState):
             self._big_state = bigfit.update_inducing(
                 self.cfg, self._big_state, self._t(x01), self._t(ya))
+        elif self._big_state is not None:
+            self._big_state = None   # ensemble experts: refit on next ask
 
     @property
     def best(self):
@@ -521,7 +533,8 @@ class SurrogateExplorer:
         Exact path: the history Cholesky comes from the round's fitted state
         (or is computed once per init round, cached) and is EXTENDED with
         the landed rows. Archive scale: the landed rows fold into a masked
-        incremental update of the inducing statistics."""
+        incremental update of the inducing statistics; an ensemble scores
+        under the round's posterior as it is."""
         from repro_torch.explore import bigfit
         cfg = self.cfg
         q = cfg.q
@@ -541,6 +554,13 @@ class SurrogateExplorer:
             st2 = bigfit.update_inducing(cfg, self.last_state, xn, yn, mn)
             scores = expected_improvement(
                 *bigfit.mean_var_inducing(cfg, st2, xp), st2.best)
+            return scores.cpu().numpy()[:p]
+        if isinstance(self.last_state, bigfit.EnsembleGPState):
+            # experts would need a refit to absorb the landed rows; score
+            # under the round's posterior as it is (dispatch order only)
+            scores = expected_improvement(
+                *bigfit.mean_var_ensemble(cfg, self.last_state, xp),
+                self.last_state.best)
             return scores.cpu().numpy()[:p]
 
         hx = self._t(self.x01)
@@ -609,11 +629,14 @@ def run_surrogate(cfg: SurrogateConfig, eval_fn: Callable, *,
                   rounds: int, environment=None, checkpoint_dir: str = None,
                   stop_after_rounds: Optional[int] = None, record=None,
                   progress: Callable[[int, int], None] = None,
-                  service=None, device="cuda",
+                  service=None, experiment_id: str = "surrogate",
+                  device="cuda",
                   settings: Optional[str] = None) -> SurrogateResult:
     """Drive the ask/tell loop for ``rounds`` rounds of ``cfg.q``
     evaluations each, inline or through a (fault-injected) Environment or
-    EnvironmentPool, with the GP engine and the evaluations on ``device``.
+    EnvironmentPool, or as tenant ``experiment_id`` of a shared
+    ``ExplorationService`` (``service=``, not with ``environment=``), with
+    the GP engine and the evaluations on ``device``.
 
     Each round: ``ask()`` fixes the batch; jobs stream through
     ``submit_async`` up to the environment's capacity at a time, highest
@@ -625,11 +648,15 @@ def run_surrogate(cfg: SurrogateConfig, eval_fn: Callable, *,
     written with other settings raises. ``stop_after_rounds`` is the mid-run
     kill switch the resume tests drive.
 
+    With ``service=`` each slot is submitted under its ask-order priority
+    (q - slot) and the re-score goes through ``service.update_priorities``:
+    re-prioritization becomes a queue primitive, and the surrogate shares
+    the service's pool with other tenants.
+
     ``eval_fn(generator, genomes (n, d)) -> (n,) scalars`` (minimized).
     """
-    if service is not None:
-        raise NotImplementedError(
-            "run_surrogate(service=...) is not ported yet")
+    if service is not None and environment is not None:
+        raise ValueError("pass either environment= or service=, not both")
     from repro_torch import checkpoint
     from repro_torch.core.cache import inputs_digest
     from repro_torch.core.prototype import Context
@@ -673,7 +700,8 @@ def run_surrogate(cfg: SurrogateConfig, eval_fn: Callable, *,
     n_rounds = max(rounds, resumed)
     stop_at = n_rounds if stop_after_rounds is None \
         else min(n_rounds, stop_after_rounds)
-    env_name = environment.name if environment is not None else "inline"
+    env_name = (environment.name if environment is not None
+                else getattr(service, "name", None) or "inline")
 
     def note(r, s, ctx, meta):
         nonlocal attempts
@@ -698,7 +726,37 @@ def run_surrogate(cfg: SurrogateConfig, eval_fn: Callable, *,
                 for s in range(q)]
         ys: List[Optional[float]] = [None] * q
 
-        if environment is None:
+        if service is not None:
+            # one tenant of a shared service: slots carry their ask-order
+            # priority into the queue, and the re-score below runs through
+            # update_priorities, the queue primitive
+            tid_by_slot = {s: service.submit_tasks(
+                experiment_id, [(task, ctxs[s])], priority=float(q - s))[0]
+                for s in range(q)}
+            slot_by_tid = {tid: s for s, tid in tid_by_slot.items()}
+            for tid, out in service.as_completed(
+                    experiment_id, list(tid_by_slot.values())):
+                s = slot_by_tid[tid]
+                if out is None:
+                    service.result(experiment_id, tid)   # raises the error
+                ys[s] = out["y"]
+                note(r, s, ctxs[s], {"retries": 0, "wall_s": 0.0})
+                waiting = [
+                    w for w in range(q) if ys[w] is None
+                    and (e := service.queue.get(
+                        experiment_id, tid_by_slot[w])) is not None
+                    and e.state == "pending"]
+                landed = [w for w in range(q) if ys[w] is not None]
+                if len(waiting) > 1 and landed:
+                    x01 = (xq - explorer._lo) / explorer._span
+                    scores = explorer.rescore(
+                        x01[landed], [ys[w] for w in landed], x01[waiting])
+                    if service.update_priorities(
+                            experiment_id,
+                            {tid_by_slot[w]: float(scores[i])
+                             for i, w in enumerate(waiting)}):
+                        repriorities += 1
+        elif environment is None:
             for s in range(q):
                 a_t0 = time.monotonic()
                 out = task.run(ctxs[s])

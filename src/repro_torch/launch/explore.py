@@ -1,13 +1,21 @@
 """The paper-centric entry point, ported from ``repro.launch.explore``:
 calibrate the ants model on CUDA devices with island-model NSGA-II
-(default) or the surrogate-assisted GP ask/tell engine, checkpointed per
-epoch or round (restart-safe).
+(default), the surrogate-assisted GP ask/tell engine, its multi-objective
+qEHVI form, or both a streaming GA init and a surrogate run as tenants of
+one exploration service; checkpointed per epoch or round, or journalled
+(restart-safe).
 
     PYTHONPATH=src python -m repro_torch.launch.explore --islands 8 \\
         --epochs 5 --out /tmp/ants_calibration              # on the card
 
     PYTHONPATH=src python -m repro_torch.launch.explore --method surrogate \\
         --rounds 8 --out /tmp/ants_surrogate                # on the card
+
+    PYTHONPATH=src python -m repro_torch.launch.explore \\
+        --method surrogate-mo --rounds 8 --out /tmp/ants_mo # on the card
+
+    PYTHONPATH=src python -m repro_torch.launch.explore --method service \\
+        --fault-rate 0.3 --out /tmp/ants_service            # on the card
 
     PYTHONPATH=src python -m repro_torch.launch.explore --reduced \\
         --device cpu --out /tmp/ants_cpu                    # plain path
@@ -29,14 +37,18 @@ epoch or round (restart-safe).
 
 Islands write ``pareto_front.json``, ``provenance.json`` and
 ``populations/`` (and ``init_checkpoints/`` with ``--init-population``);
-the surrogate writes ``surrogate_result.json`` and ``provenance.json``;
-both with the reference's keys; with a mesh of several ranks, rank 0
-alone writes them. A rerun with the same
-``--out`` resumes from the last committed epoch or round, and refuses to
-when the checkpoint was written by a run of other settings (model config,
-widths, replicates, device; not the mesh, which changes where the work
-runs and not its result). Methods whose machinery is not ported yet stop
-with an error naming them.
+the surrogate writes ``surrogate_result.json`` and ``provenance.json``, the
+multi-objective surrogate ``surrogate_mo_result.json`` and
+``provenance.json``, the service ``service_result.json``,
+``provenance_ga-init.json``, ``provenance_surrogate.json``, its queue's
+journal ``queue.jsonl`` and its task cache ``cache/``; all with the
+reference's keys; with a mesh of several ranks, rank 0 alone writes them.
+A rerun with the same ``--out`` resumes from the last committed epoch or
+round, and refuses to when the checkpoint was written by a run of other
+settings (model config, widths, replicates, device; not the mesh, which
+changes where the work runs and not its result); the service resumes from
+its journal and cache, where a firing of other settings has another
+content address and runs anew.
 """
 from __future__ import annotations
 
@@ -63,6 +75,7 @@ from repro_torch.evolution import (Archive, NSGA2Config, ga,
                                    init_island_state, pareto_front,
                                    run_islands)
 from repro_torch.explore import replicated_batch
+from repro_torch.explore.moacq import MOSurrogateConfig, run_surrogate_mo
 from repro_torch.explore.surrogate import SurrogateConfig, run_surrogate
 from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
                                      make_island_mesh)
@@ -394,6 +407,161 @@ def calibrate_surrogate(*, reduced: bool = True, rounds: int = 8, q: int = 8,
     return res, out
 
 
+def ants_mo_eval(reduced: bool = True, replicates: int = 3):
+    """(generator, genomes (n, 2)) -> (n, 3) replicated-median times to
+    deplete each food source, the paper's three calibration objectives,
+    fed raw to the multi-objective surrogate (all minimized)."""
+    return ants_eval_fn(REDUCED if reduced else CONFIG, replicates)
+
+
+def calibrate_surrogate_mo(*, reduced: bool = True, rounds: int = 8,
+                           q: int = 8, n_init: int = 16, replicates: int = 3,
+                           fault_rate: float = 0.0, pool_devices: int = 0,
+                           out_dir: str, device="cuda", printer=print):
+    """Multi-objective surrogate calibration of the ants model on
+    ``device``: per-objective GPs + qEHVI batches bred from the NSGA-II
+    Pareto archive (``explore.moacq``), streamed through the fault-tolerant
+    environment pool (``make_init_pool``), checkpointed per round
+    (restart-safe; a checkpoint of other settings is refused), with the
+    reference's provenance schema. Returns (MOSurrogateResult, the
+    surrogate_mo_result.json dict)."""
+    dev = resolve_device(device)
+    ants_cfg = REDUCED if reduced else CONFIG
+    os.makedirs(out_dir, exist_ok=True)
+    cfg = MOSurrogateConfig(bounds=BOUNDS, n_objectives=3, q=q,
+                            n_init=n_init, seed=0)
+    settings = json.dumps({
+        "ants": dataclasses.asdict(ants_cfg), "device": dev.type,
+        "surrogate_mo": dataclasses.asdict(cfg), "replicates": replicates},
+        sort_keys=True)
+    record = RunRecord(workflow="ants-surrogate-mo", scheduler="ask-tell",
+                       environment="pool", started_at=_utcnow())
+    pool = make_init_pool(fault_rate, pool_devices=pool_devices,
+                          device=dev.type)
+    t0 = time.time()
+    try:
+        res = run_surrogate_mo(
+            cfg, ants_mo_eval(reduced, replicates), rounds=rounds,
+            environment=pool, record=record, device=dev, settings=settings,
+            checkpoint_dir=os.path.join(out_dir, "surrogate_checkpoints"),
+            progress=lambda r, n: printer(f"[explore] round {r}/{n}"))
+    finally:
+        pool.shutdown()
+    dt = time.time() - t0
+    printer(f"[explore] surrogate-mo: {len(res.objectives)} evaluations in "
+            f"{dt:.1f}s ({res.attempts} attempts, {res.resumed_rounds} "
+            f"rounds resumed) on {dev}; front {len(res.front_objectives)} "
+            f"points, hypervolume {res.hv:.3g}")
+    out = {
+        "front_genomes": np.asarray(res.front_genomes).tolist(),
+        "front_objectives": np.asarray(res.front_objectives).tolist(),
+        "hypervolume": res.hv,
+        "genomes": np.asarray(res.genomes).tolist(),
+        "objectives": np.asarray(res.objectives).tolist(),
+        "rounds": res.rounds_done,
+        "attempts": res.attempts,
+        "fault_rate": fault_rate,
+        "wall_s": dt,
+    }
+    with open(os.path.join(out_dir, "surrogate_mo_result.json"), "w") as f:
+        json.dump(out, f, indent=2)
+    record.finalize(dt)
+    record.save(os.path.join(out_dir, "provenance.json"))
+    return res, out
+
+
+def calibrate_service(*, reduced: bool = True, init_population: int = 2048,
+                      init_chunk: int = 256, rounds: int = 4, q: int = 8,
+                      n_init: int = 16, replicates: int = 3,
+                      fault_rate: float = 0.0, pool_devices: int = 0,
+                      out_dir: str, device="cuda", printer=print):
+    """Service mode on ``device``: TWO experiments, a streaming GA-population
+    init and a surrogate calibration, run concurrently as tenants of ONE
+    ``ExplorationService`` over one shared environment pool
+    (``make_init_pool``). The queue journals to ``<out>/queue.jsonl`` and
+    outputs memoize under ``<out>/cache``, so killing this driver mid-run
+    and rerunning it resumes both tenants without re-executing finished
+    work. Returns ({"ga": StreamingResult, "surrogate": SurrogateResult},
+    the service_result.json dict)."""
+    import threading
+
+    from repro_torch.core import ExplorationService
+
+    dev = resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    ants_cfg = REDUCED if reduced else CONFIG
+    ga_cfg = NSGA2Config(mu=16, genome_dim=2, bounds=BOUNDS, n_objectives=3)
+    sur_cfg = SurrogateConfig(bounds=BOUNDS, q=q, n_init=n_init, seed=0)
+    # device-set members pin each job to a card of theirs: the jobs then
+    # make their tensors on the bare "cuda" device
+    job_dev = torch.device(dev.type) if pool_devices else dev
+    pool = make_init_pool(fault_rate, pool_devices=pool_devices,
+                          device=dev.type)
+    service = ExplorationService(
+        pool, cache=os.path.join(out_dir, "cache"),
+        journal=os.path.join(out_dir, "queue.jsonl"))
+    results: dict = {}
+    errors: list = []
+
+    def ga_tenant():
+        try:
+            results["ga"] = ga.evaluate_population_streaming(
+                ga_cfg, ants_eval_fn(ants_cfg, replicates), 0,
+                n_total=init_population, chunk=init_chunk, service=service,
+                experiment_id="ga-init", device=job_dev)
+        except Exception as e:            # surfaced after join
+            errors.append(e)
+
+    def surrogate_tenant():
+        try:
+            results["surrogate"] = run_surrogate(
+                sur_cfg, ants_scalar_eval(reduced, replicates),
+                rounds=rounds, service=service, experiment_id="surrogate",
+                device=job_dev)
+        except Exception as e:            # surfaced after join
+            errors.append(e)
+
+    t0 = time.time()
+    tenants = [threading.Thread(target=ga_tenant, name="tenant-ga"),
+               threading.Thread(target=surrogate_tenant,
+                                name="tenant-surrogate")]
+    try:
+        for t in tenants:
+            t.start()
+        for t in tenants:
+            t.join()
+    finally:
+        for eid in ("ga-init", "surrogate"):
+            service.record(eid).save(
+                os.path.join(out_dir, f"provenance_{eid}.json"))
+        service.shutdown()
+        pool.shutdown()
+    if errors:
+        raise errors[0]
+    dt = time.time() - t0
+    sres, rres = results["ga"], results["surrogate"]
+    n_jobs = sres.chunks_done + rres.rounds_done * q
+    printer(f"[explore] service: 2 tenants, {n_jobs} jobs through one pool "
+            f"in {dt:.1f}s on {dev}: init {init_population} individuals "
+            f"({sres.attempts} attempts), surrogate best "
+            f"{rres.best_objective:.1f} at {rres.best_genome} "
+            f"({rres.repriorities} queue re-prioritizations)")
+    out = {
+        "init": {"n_individuals": init_population,
+                 "attempts": sres.attempts, "wall_s": sres.wall_s},
+        "surrogate": {"best_genome": np.asarray(rres.best_genome).tolist(),
+                      "best_objective": rres.best_objective,
+                      "repriorities": rres.repriorities,
+                      "wall_s": rres.wall_s},
+        "queue": service.query(),
+        "fault_rate": fault_rate,
+        "wall_s": dt,
+    }
+    with open(os.path.join(out_dir, "service_result.json"), "w") as f:
+        json.dump(out, f, indent=2)
+    return results, out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Calibration of the ants model (PyTorch/CUDA port).")
@@ -401,8 +569,11 @@ def main(argv=None):
                     choices=("islands", "surrogate", "surrogate-mo",
                              "service"), default="islands",
                     help="islands: island-model NSGA-II; surrogate: GP + "
-                         "q-EI ask/tell through the environment pool "
-                         "(surrogate-mo and service are not ported yet)")
+                         "q-EI ask/tell through the environment pool; "
+                         "surrogate-mo: per-objective GPs + qEHVI batches "
+                         "bred from the Pareto archive; service: GA init + "
+                         "surrogate calibration concurrently through one "
+                         "shared ExplorationService (restart-safe queue)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions of "
                          "the kernels")
@@ -426,8 +597,12 @@ def main(argv=None):
                          "200000) through the fault-tolerant environment "
                          "pool before the island run, streaming in "
                          "--init-chunk jobs with mid-population "
-                         "checkpoint/resume; islands seed from its best")
-    ap.add_argument("--init-chunk", type=int, default=2048)
+                         "checkpoint/resume; islands seed from its best "
+                         "(--method service: the GA tenant's population, "
+                         "2048 when not given)")
+    ap.add_argument("--init-chunk", type=int, default=2048,
+                    help="individuals per init job (capped at 256 for "
+                         "--method service)")
     ap.add_argument("--fault-rate", type=float, default=0.0,
                     help="injected per-attempt job-failure rate of the "
                          "evaluation pool (the init's or the surrogate's; "
@@ -460,9 +635,6 @@ def main(argv=None):
                     help="Sobol space-filling evaluations seeding the GP")
     ap.add_argument("--acquisition", choices=("qei", "qucb"), default="qei")
     args = ap.parse_args(argv)
-    if args.method not in ("islands", "surrogate"):
-        ap.error(f"--method {args.method} is not ported yet (only islands "
-                 f"and surrogate)")
     joined = False
     if args.distributed or args.num_processes or args.coordinator:
         joined = init_distributed(
@@ -480,6 +652,24 @@ def main(argv=None):
                                         device=args.device)
             except ValueError as e:
                 ap.error(f"--mesh {args.mesh}: {e}")
+        if args.method == "service":
+            calibrate_service(reduced=args.reduced,
+                              init_population=args.init_population or 2048,
+                              init_chunk=min(args.init_chunk, 256),
+                              rounds=args.rounds, q=args.q,
+                              n_init=args.n_init, replicates=args.replicates,
+                              fault_rate=args.fault_rate,
+                              pool_devices=args.pool_devices,
+                              out_dir=args.out, device=args.device)
+            return
+        if args.method == "surrogate-mo":
+            calibrate_surrogate_mo(reduced=args.reduced, rounds=args.rounds,
+                                   q=args.q, n_init=args.n_init,
+                                   replicates=args.replicates,
+                                   fault_rate=args.fault_rate,
+                                   pool_devices=args.pool_devices,
+                                   out_dir=args.out, device=args.device)
+            return
         if args.method == "surrogate":
             calibrate_surrogate(reduced=args.reduced, rounds=args.rounds,
                                 q=args.q, n_init=args.n_init,

@@ -888,3 +888,64 @@ def test_device_environment_pins_attempts_on_the_card(cuda):
     outs = member.map_explore(lane, [Context(x=torch.ones(2))] * 4)
     assert member.last_lane_devices == (torch.device("cuda", 0),)
     assert all(o["y"].device == torch.device("cuda", 0) for o in outs)
+
+
+# The qEHVI box sweeps: box samples (rows) against the current front
+# (columns), whose empty slots are +BIG rows; hv_estimate's 4096 samples
+# against a front of any size.
+@pytest.mark.parametrize("ni,nj,n_big", [(128, 64, 24), (128, 64, 0),
+                                         (4096, 64, 16), (4096, 37, 0),
+                                         (4096, 1, 0)])
+def test_dominance_kernel_at_the_box_sweep_shapes(cuda, ni, nj, n_big):
+    g = _gen(cuda, ni + nj)
+    u = torch.rand((ni, 3), generator=g, device=cuda) * 2.0 - 1.0
+    front = torch.randn((nj, 3), generator=g, device=cuda) * 0.5
+    front[nj - n_big:] = 1.0e30
+    got = ops.dominance_pass(u, front)
+    expect = ref.dominance_pass_ref(u, front)
+    assert torch.equal(got[0], expect[0]) and torch.equal(got[1], expect[1])
+    assert int((got[0] > 0).sum()) > 0
+
+
+def test_run_surrogate_mo_on_cuda_equals_the_cpu_run(cuda):
+    """run_surrogate_mo at REDUCED (1 replicate; 2 Sobol rounds and 1 qEHVI
+    round of 4) on the card against the same run on the CPU, each
+    evaluation's Gumbel noise drawn on the host from its (seed, round,
+    slot) generator's seed: the Sobol rounds' ticks equal; in the qEHVI
+    round the card's pick equals the CPU's wherever the CPU's gain leads
+    the next slot's by more than 4 / (mc_samples x hv_samples), the
+    tolerance of a few flipped sample-cell comparisons."""
+    import numpy as np
+
+    from repro_torch.ants import model
+    from repro_torch.explore import moacq
+    from repro_torch.launch import explore
+    cfg = moacq.MOSurrogateConfig(bounds=explore.BOUNDS, q=4, n_init=8,
+                                  seed=0)
+    red = explore.REDUCED
+
+    def eval_fn(gen, genomes):
+        host = torch.Generator().manual_seed(gen.initial_seed())
+        noise = model.draw_gumbel(
+            host, (red.max_ticks, len(genomes), red.population, 8), "cpu")
+        return model.simulate_batch(red, genomes[:, 0], genomes[:, 1],
+                                    noise=noise.to(genomes.device))
+
+    runs = {w: moacq.run_surrogate_mo(cfg, eval_fn, rounds=3, device=w)
+            for w in ("cpu", cuda)}
+    cpu, card = runs["cpu"], runs[cuda]
+    assert np.array_equal(card.genomes[:8], cpu.genomes[:8])
+    assert np.array_equal(card.objectives[:8], cpu.objectives[:8])
+    assert (cpu.objectives < red.max_ticks).any()     # objectives vary
+    ex = moacq.MOSurrogateExplorer(cfg, device="cpu")
+    ex.load_state_arrays({"x01": (cpu.genomes[:8] - ex._lo) / ex._span,
+                          "y": cpu.objectives[:8], "round": np.int32(2)})
+    batch = ex.ask()
+    np.testing.assert_array_equal(batch, cpu.genomes[8:])
+    tol = 4.0 / (cfg.mc_samples * cfg.hv_samples)
+    gains = ex.last_gains
+    for s in range(cfg.q):
+        if s == cfg.q - 1 or gains[s] - gains[s + 1] > tol:
+            np.testing.assert_allclose(card.genomes[8 + s],
+                                       cpu.genomes[8 + s], rtol=1e-6)
+    assert np.isfinite(card.hv) and card.hv > 0

@@ -260,9 +260,13 @@ def test_streaming_resume_refuses_other_settings(tmp_path):
 
 
 def test_streaming_service_is_not_ported():
+    """The service tenant is ported now (tests/test_torch_service.py);
+    given both an environment and a service, the streaming init raises, as
+    the reference's does."""
     cfg, eval_fn = _stream_setup()
-    with pytest.raises(NotImplementedError, match="service"):
-        _stream(cfg, eval_fn, n_total=64, chunk=32, service=object())
+    with pytest.raises(ValueError, match="either environment= or service="):
+        _stream(cfg, eval_fn, n_total=64, chunk=32, service=object(),
+                environment=object())
 
 
 def test_streaming_defaults_to_the_card(monkeypatch):

@@ -310,10 +310,15 @@ def test_inducing_state_from_the_reference_gives_its_posterior(
 
 
 def test_big_method_ensemble_is_not_ported_yet():
-    _, tcfg = _cfgs(big_method="ensemble", **BIG)
+    """The ensemble is ported now (tests/test_torch_moacq.py holds it to the
+    reference): past n_max_exact, gp_fit routes to it and its posterior is
+    finite."""
+    _, tcfg = _cfgs(big_method="ensemble", expert_size=64, **BIG)
     x, y = _history(200)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tsur.gp_fit(tcfg, _t(x), _t(y))
+    st = tsur.gp_fit(tcfg, _t(x), _t(y))
+    assert isinstance(st, tbig.EnsembleGPState) and st.x.shape == (4, 64, 2)
+    mean, var = tsur.gp_mean_var(tcfg, st, _t(x[:5]))
+    assert torch.isfinite(mean).all() and (var > 0).all()
 
 
 def test_archive_explorer_asks_in_the_unit_cube_and_tells_incrementally():
@@ -506,10 +511,13 @@ def test_resume_with_other_settings_is_refused(tmp_path):
 
 
 def test_service_mode_is_not_ported_yet():
+    """The service mode is ported now (tests/test_torch_service.py); given
+    both an environment and a service, run_surrogate raises, as the
+    reference's does."""
     _, tcfg = _cfgs(q=4, n_init=8)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="either environment= or service="):
         tsur.run_surrogate(tcfg, _quadratic_eval, rounds=1, device="cpu",
-                           service=object())
+                           service=object(), environment=object())
 
 
 def test_explorer_refuses_missing_cuda():

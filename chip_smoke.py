@@ -6,8 +6,9 @@ size, the surrogate's archive-scale fit at 50,000 points, the streaming
 init through the fault-tolerant pool seeding a pipelined island run, the
 GP factorization sweep, flash attention at smollm-135m's full width and the
 paper's Listings 2-5 through the workflow DSL, the island run over two
-ranks, the multi-objective qEHVI surrogate and the exploration service
-with its two tenants, and prints one JSON object per line.
+ranks, the multi-objective qEHVI surrogate, the exploration service with
+its two tenants, and LM serving (smollm-135m at full width, every arch of
+the zoo at REDUCED, four at CONFIG), and prints one JSON object per line.
 
     python3 chip_smoke.py
 
@@ -159,7 +160,19 @@ Phases (any failure exits non-zero):
               results); the GA tenant bitwise equal to an inline streaming
               init, the surrogate tenant to phase surrogate's first 24
               evaluations (see service_phase; the "service" path).
- 15. the kernels line, the card's name and power limit, and the last line
+ 15. serve    LM serving through launch.serve.serve_once (engine.generate
+              over Model.prefill / decode, _sdpa attention as the
+              reference serves, so no kernel of the port runs: every launch
+              count must stay 0): smollm-135m at CONFIG, batch 4, prompt
+              16, 24 new tokens, greedy, in f32 and bf16 (cold / warm s,
+              tok/s, peak memory, idle share over one warm generate), the
+              f32 run's tokens teacher-forced through the card and the CPU
+              (logits within SERVE_TOL, tokens equal where the CPU's top-2
+              margin exceeds it); the ten archs at REDUCED, each held to
+              the CPU the same way; SERVE_CONFIG_ARCHS at CONFIG (finite
+              logits, tokens in range). See serve_phase; its (a) gives the
+              "serve" path of the kernels line.
+ 16. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -524,6 +537,35 @@ def device_busy_share(torch, fn) -> dict:
     busy = busy_union_ms(intervals)
     return {"window_ms": wall, "device_busy_ms": busy,
             "kernel_sum_ms": kernel_sum,
+            "idle_share": max(0.0, 1.0 - busy / wall)}
+
+
+def light_busy_share(torch, fn, tries: int = 3) -> dict:
+    """``device_busy_share`` for a window of tens of thousands of kernels:
+    CUDA activity alone, read from the profiler's raw records. Building its
+    event list for one eager ``generate`` of smollm-135m (~48,600 kernels)
+    took ~45 s on the H100's host; the raw records give the same busy time
+    in under a second."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        intervals = [("", e.start_ns() / 1e3,
+                      (e.start_ns() + e.duration_ns()) / 1e3)
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == cuda]
+        if intervals:
+            break
+    require(bool(intervals), "the profiler recorded no kernel")
+    busy = busy_union_ms(intervals)
+    return {"window_ms": wall, "device_busy_ms": busy,
+            "kernel_sum_ms": sum(b - a for _, a, b in intervals) / 1e3,
+            "kernels": len(intervals),
             "idle_share": max(0.0, 1.0 - busy / wall)}
 
 
@@ -2165,6 +2207,185 @@ def service_phase(torch, dev, sur_res) -> dict:
     return svc_launches
 
 
+# Phase serve: logits held card == CPU within this (atol and rtol), the
+# reference's own decode-against-prefill tolerance; (d)'s CONFIG archs
+SERVE_TOL = 2e-4
+SERVE_CONFIG_ARCHS = (("granite-moe-1b-a400m", "float32"),
+                      ("mamba2-2.7b", "float32"),
+                      ("whisper-base", "float32"),
+                      ("deepseek-v2-lite-16b", "bfloat16"))
+
+
+def hold_to_cpu(torch, model, params, prompts, frames, tokens) -> dict:
+    """The card's served ``tokens`` (B, N) teacher-forced through the
+    card's model and through the same weights on the CPU: every step's
+    logits within SERVE_TOL, and the card's tokens equal to the CPU's
+    argmax wherever the CPU's top-2 margin exceeds it (each row followed up
+    to its first step at or under the margin, where the two may part)."""
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import teacher_forced_logits
+    toks = torch.as_tensor(tokens, device=prompts.device)
+    card = teacher_forced_logits(model, params, prompts, toks, frames=frames)
+    cpu_model = build(model.cfg, "cpu")
+    cpu = teacher_forced_logits(
+        cpu_model, tree_map(lambda t: t.cpu(), params), prompts.cpu(),
+        toks.cpu(), frames=None if frames is None else frames.cpu())
+    card = card.cpu()
+    err = (card - cpu).abs()
+    close = bool((err <= SERVE_TOL + SERVE_TOL * cpu.abs()).all())
+    top2 = cpu.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]                    # (N, B)
+    argmax = cpu.argmax(-1)
+    followed, unequal = 0, []
+    for r in range(toks.shape[0]):
+        for t in range(toks.shape[1]):
+            if margin[t, r] <= SERVE_TOL:
+                break
+            followed += 1
+            if int(argmax[t, r]) != int(tokens[r, t]):
+                unequal.append((r, t))
+    out = {"max_abs_err": float(err.max()),
+           "min_margin": float(margin.min()), "steps_followed": followed,
+           "steps": int(margin.numel()), "tolerance": SERVE_TOL,
+           "card_logits_finite": bool(torch.isfinite(card).all())}
+    require(close, f"serve: card logits against the CPU's beyond "
+            f"{SERVE_TOL}: {out}")
+    require(not unequal, f"serve: card tokens differ from the CPU's argmax "
+            f"at (row, step) {unequal[:8]}: {out}")
+    require(out["card_logits_finite"], f"serve: non-finite logits {out}")
+    return out
+
+
+def serve_phase(torch, dev) -> dict:
+    """Phase ``serve``: LM serving through the entry point a user calls,
+    ``launch.serve.serve_once`` (``engine.generate`` → ``Model.prefill`` /
+    ``decode``), with ``use_flash_kernel=False`` as the reference serves:
+    every layer's attention is ``_sdpa``, so no kernel of the port runs.
+    (a) smollm-135m at CONFIG at the reference's defaults (batch 4, prompt
+    16, 24 new tokens, greedy) in f32, then in bf16 (the config's dtype):
+    cold and warm s, warm tok/s, peak memory, and the idle share over one
+    warm ``generate`` (``light_busy_share``); the launch counts read
+    around (a) are the "serve" path of the kernels line. (b) the f32 run
+    held to the CPU (``hold_to_cpu``, TF32 off). (c) every arch at REDUCED
+    through ``serve_once`` on the card, each held to the CPU the same way.
+    (d) SERVE_CONFIG_ARCHS at CONFIG: init, cold and warm s, peak memory;
+    finite logits of the served tokens, tokens in range. Every kernel must
+    show 0 launches in (a), (c) and (d)."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.serve import generate, teacher_forced_logits
+
+    def quiet(*_):
+        pass
+
+    def no_launches(counts, what):
+        require(not any(counts.values()),
+                f"serve {what}: a kernel of the port was launched {counts}")
+
+    def served(arch, reduced, dtype):
+        """serve_once with the peak memory around it."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tokens, stats = serve.serve_once(arch, reduced=reduced, dtype=dtype,
+                                         printer=quiet, device="cuda")
+        stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stats["memory_before_gb"] = base / 1e9
+        return tokens, stats
+
+    t0 = time.monotonic()
+    # -- (a) + (b): smollm-135m at full width
+    ops.reset_kernel_launch_counts()
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        t_run = time.monotonic()
+        tokens, stats = served("smollm-135m", False, dtype)
+        model, params, prompts, frames, sc = serve.setup(
+            "smollm-135m", reduced=False, dtype=dtype, device=dev)
+        warm = generate(model, params, prompts, sc, frames=frames)
+        require(bool((warm.cpu().numpy() == tokens).all()),
+                f"serve {dtype}: a second generate gave other tokens")
+        stats["profile_generate"] = light_busy_share(
+            torch, lambda: generate(model, params, prompts, sc,
+                                    frames=frames))
+        require(tokens.shape == (4, 24) and tokens.min() >= 0
+                and tokens.max() < model.cfg.vocab_size,
+                f"serve {dtype}: tokens {tokens.shape} out of range")
+        if dtype == "float32":
+            t_hold = time.monotonic()
+            stats["held_to_cpu"] = hold_to_cpu(torch, model, params, prompts,
+                                               frames, tokens)
+            stats["held_to_cpu"]["seconds"] = time.monotonic() - t_hold
+        else:
+            logits = teacher_forced_logits(
+                model, params, prompts,
+                torch.as_tensor(tokens, device=dev), frames=frames)
+            require(bool(torch.isfinite(logits).all()),
+                    "serve bfloat16: non-finite logits")
+        stats["wall_s"] = time.monotonic() - t_run
+        rows[dtype] = stats
+        del model, params, warm
+    serve_launches = ops.kernel_launch_counts()
+    no_launches(serve_launches, "(a)")
+    emit({"phase": "serve", "arch": "smollm-135m", "config": "CONFIG",
+          "seconds": time.monotonic() - t0,
+          "batch": 4, "prompt_len": 16, "new_tokens": 24, "greedy": True,
+          "runs": rows, "launches": serve_launches})
+
+    # -- (c): every arch at REDUCED, held to the CPU
+    ops.reset_kernel_launch_counts()
+    reduced = {}
+    for arch in ARCH_IDS:
+        t_arch = time.monotonic()
+        tokens, stats = served(arch, True, "float32")
+        model, params, prompts, frames, _ = serve.setup(arch, device=dev)
+        stats["held_to_cpu"] = hold_to_cpu(torch, model, params, prompts,
+                                           frames, tokens)
+        stats["wall_s"] = time.monotonic() - t_arch
+        reduced[arch] = stats
+    no_launches(ops.kernel_launch_counts(), "(c)")
+    emit({"phase": "serve", "config": "REDUCED", "archs": reduced,
+          "seconds": time.monotonic() - t0})
+
+    # -- (d): four more archs at CONFIG, timed as serve_once times them but
+    # on one init, whose weights then give the served tokens' logits
+    ops.reset_kernel_launch_counts()
+    config = {}
+    for arch, dtype in SERVE_CONFIG_ARCHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t_arch = time.monotonic()
+        model, params, prompts, frames, sc = serve.setup(
+            arch, reduced=False, dtype=dtype, device=dev)
+        torch.cuda.synchronize()
+        stats = {"dtype": dtype, "init_s": time.monotonic() - t_arch,
+                 "params_b": sum(t.numel() for t in tree_leaves(params))
+                 / 1e9}
+        for run in ("cold", "warm"):
+            t1 = time.perf_counter()
+            tokens = generate(model, params, prompts, sc, frames=frames)
+            torch.cuda.synchronize()
+            stats[f"{run}_s"] = time.perf_counter() - t1
+        stats["tok_s_warm"] = tokens.numel() / stats["warm_s"]
+        stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        logits = teacher_forced_logits(model, params, prompts, tokens,
+                                       frames=frames)
+        require(bool(torch.isfinite(logits).all()),
+                f"serve {arch}: non-finite logits")
+        require(int(tokens.min()) >= 0
+                and int(tokens.max()) < model.cfg.vocab_size,
+                f"serve {arch}: tokens out of range")
+        stats["wall_s"] = time.monotonic() - t_arch
+        config[arch] = stats
+        del model, params, logits
+    emit({"phase": "serve", "config": "CONFIG", "archs": config,
+          "seconds": time.monotonic() - t0})
+    return serve_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3061,7 +3282,13 @@ def main() -> int:
 
     stamp()
 
-    # -- 15. the kernels line, the card, the contract line -------------------
+    # -- 15. LM serving: smollm-135m at full width, every arch at REDUCED,
+    # four more at CONFIG; no kernel of the port on this path
+    serve_launches = serve_phase(torch, dev)
+
+    stamp()
+
+    # -- 16. the kernels line, the card, the contract line -------------------
     # (kernel, result key, source, TPU kernel, the path whose run gives the
     # launches); every path's counts are listed beside it
     by_path = {"ranking": rank_launches,
@@ -3071,7 +3298,7 @@ def main() -> int:
                "flash": flash_launches, "dsl": dsl_launches,
                "mesh": mesh_launches, "surrogate_mo": mo_launches,
                "surrogate_mo_big": mo_big_launches,
-               "service": svc_launches}
+               "service": svc_launches, "serve": serve_launches}
     rows = (
         ("diffuse_evaporate", ("diffuse_evaporate", 640), "diffusion.cu",
          "src/repro/kernels/diffusion.py:89", "calibrate"),

@@ -5,7 +5,8 @@ module, so a change to one is made to both. Every architecture gets one
 ``<id>.py`` module exporting ``CONFIG`` (a :class:`ModelConfig` with the
 exact published numbers) and optionally ``REDUCED`` (a small same-family
 config used by CPU tests). The MoE/MLA/SSM blocks and the sharding
-overrides are carried as plain data.
+overrides are carried as plain data. ``param_counts`` and ``cells_for``
+wait for their callers (the dry-run and the bench driver).
 
 Shapes:
   train_4k     seq_len=4096    global_batch=256   (training)
@@ -17,6 +18,15 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Layer kinds used to describe heterogeneous stacks (Jamba etc.).
+ATTN = "attn"            # full (GQA) self-attention
+MLA_ = "mla"             # multi-head latent attention (DeepSeek-V2)
+SSM = "ssm"              # Mamba-2 SSD layer
+DENSE_FF = "dense"       # dense MLP
+MOE_FF = "moe"           # mixture-of-experts MLP
+NO_FF = "none"           # no feed-forward (pure Mamba-2 blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +73,7 @@ class ModelConfig:
     head_dim: int = 0                   # 0 -> d_model // n_heads
     # --- heterogeneous stacks -------------------------------------------------
     # Pattern of (mixer, ff) kinds repeated over the stack. Length must divide
-    # n_layers. Default: all ("attn", "dense").
+    # n_layers. Default: all (ATTN, DENSE_FF).
     layer_pattern: Tuple[Tuple[str, str], ...] = ()
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
@@ -110,8 +120,28 @@ class ModelConfig:
     notes: str = ""
 
     @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def pattern(self) -> Tuple[Tuple[str, str], ...]:
+        if self.layer_pattern:
+            if self.n_layers % len(self.layer_pattern):
+                raise ValueError(
+                    f"{self.name}: pattern len {len(self.layer_pattern)} "
+                    f"does not divide n_layers {self.n_layers}")
+            return self.layer_pattern
+        return ((ATTN, DENSE_FF),)
+
+    @property
+    def n_blocks(self) -> int:
+        """Number of repeats of the layer pattern (the stacked axis)."""
+        return self.n_layers // len(self.pattern)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -949,3 +949,42 @@ def test_run_surrogate_mo_on_cuda_equals_the_cpu_run(cuda):
             np.testing.assert_allclose(card.genomes[8 + s],
                                        cpu.genomes[8 + s], rtol=1e-6)
     assert np.isfinite(card.hv) and card.hv > 0
+
+
+# ---------------------------------------------------------------------------
+# LM serving (launch.serve): every arch at REDUCED, card against the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", [
+    "minicpm-2b", "phi3-medium-14b", "smollm-135m", "granite-3-2b",
+    "mamba2-2.7b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+    "jamba-1.5-large-398b", "chameleon-34b", "whisper-base"])
+def test_serve_reduced_card_matches_cpu(cuda, arch):
+    """serve_once on the card launches none of the port's kernels (serving
+    runs ``_sdpa``, as the reference); the served tokens teacher-forced on
+    the card and, with the same weights, on the CPU give logits within
+    2e-4, and the tokens are the CPU's argmax wherever its top-2 margin
+    exceeds that (each row up to its first step at or under it)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import teacher_forced_logits
+    tol = 2e-4
+    _no_tf32()
+    ops.reset_kernel_launch_counts()
+    tokens, _ = serve.serve_once(arch, device="cuda", printer=lambda *a: None)
+    assert not any(ops.kernel_launch_counts().values())
+    model, params, prompts, frames, _ = serve.setup(arch, device=cuda)
+    toks = torch.as_tensor(tokens)
+    card = teacher_forced_logits(model, params, prompts, toks.to(cuda),
+                                 frames=frames).cpu()
+    cpu = teacher_forced_logits(
+        build(model.cfg, "cpu"), tree_map(lambda t: t.cpu(), params),
+        prompts.cpu(), toks, frames=None if frames is None else frames.cpu())
+    torch.testing.assert_close(card, cpu, atol=tol, rtol=tol)
+    top2 = cpu.topk(2, dim=-1).values
+    margin, argmax = top2[..., 0] - top2[..., 1], cpu.argmax(-1)
+    for r in range(toks.shape[0]):
+        for t in range(toks.shape[1]):
+            if margin[t, r] <= tol:
+                break
+            assert int(argmax[t, r]) == int(toks[r, t]), (r, t)

@@ -1,3 +1,4 @@
 from repro_torch.checkpoint.checkpointer import (latest_step,  # noqa
                                                  prune, require_settings,
-                                                 restore, save)
+                                                 restore, save,
+                                                 saved_leaves)

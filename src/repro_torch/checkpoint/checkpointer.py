@@ -8,7 +8,8 @@ Layout:
   <dir>/step_<n>/.complete           commit marker
 
 Trees are nested NamedTuples and dicts; leaves are tensors (restored to a
-given device), numpy arrays, or Python ints. A ``torch.Generator`` is saved
+given device; bfloat16 ones are stored as their int16 bits), numpy arrays,
+or Python ints. A ``torch.Generator`` is saved
 through its ``get_state()`` bytes, so a resumed run draws exactly the
 numbers the uninterrupted run would have.
 """
@@ -55,7 +56,11 @@ def save(directory: str, step: int, tree: Any) -> None:
     flat = _flatten(tree)
     arrays, kinds = {}, {}
     for k, v in flat.items():
-        if isinstance(v, torch.Tensor):
+        if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+            # numpy has no bfloat16: its bits, as int16
+            arrays[k] = v.detach().cpu().view(torch.int16).numpy()
+            kinds[k] = "bfloat16"
+        elif isinstance(v, torch.Tensor):
             arrays[k], kinds[k] = v.detach().cpu().numpy(), "tensor"
         elif isinstance(v, int):
             arrays[k], kinds[k] = np.asarray(v, np.int64), "int"
@@ -87,6 +92,15 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def saved_leaves(directory: str, step: int) -> list:
+    """The dotted leaf paths that step ``step`` holds (from its manifest):
+    what a caller needs to build the ``like`` tree of ``restore`` when the
+    saved tree's shape depends on settings."""
+    path = os.path.join(directory, f"step_{step:08d}", "manifest.json")
+    with open(path) as f:
+        return sorted(json.load(f)["kinds"])
+
+
 def restore(directory: str, step: int, like: Any, device=None):
     """Restore step ``step`` into the structure of ``like`` (any tree with
     the saved structure; only its structure and leaf shapes are read).
@@ -110,6 +124,9 @@ def restore(directory: str, step: int, like: Any, device=None):
                                  f"expected {tuple(shape)}")
             if kind == "tensor":
                 leaves[k] = torch.from_numpy(a).to(device)
+            elif kind == "bfloat16":
+                leaves[k] = torch.from_numpy(a).view(torch.bfloat16).to(
+                    device)
             elif kind == "int":
                 leaves[k] = int(a)
             else:

@@ -5,8 +5,9 @@ module, so a change to one is made to both. Every architecture gets one
 ``<id>.py`` module exporting ``CONFIG`` (a :class:`ModelConfig` with the
 exact published numbers) and optionally ``REDUCED`` (a small same-family
 config used by CPU tests). The MoE/MLA/SSM blocks and the sharding
-overrides are carried as plain data. ``param_counts`` and ``cells_for``
-wait for their callers (the dry-run and the bench driver).
+overrides are carried as plain data. ``param_counts`` gives a training
+step's model FLOPs (6 N D); ``cells_for`` waits for its caller (the port's
+bench harness).
 
 Shapes:
   train_4k     seq_len=4096    global_batch=256   (training)
@@ -142,6 +143,65 @@ class ModelConfig:
     def n_blocks(self) -> int:
         """Number of repeats of the layer pattern (the stacked axis)."""
         return self.n_layers // len(self.pattern)
+
+    # ---- parameter counting (for MODEL_FLOPS = 6*N*D roofline term) --------
+    def param_counts(self) -> Tuple[int, int]:
+        """Returns (total_params, active_params) — active differs for MoE.
+        The reference's count, term for term (its encoder-decoder terms
+        included as it writes them)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        mult = 3 if self.act == "silu" else 2
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        total = active = emb
+        for mixer, ff in self.pattern:
+            reps = self.n_blocks
+            if mixer == ATTN:
+                p = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+                    + self.n_heads * hd * d
+            elif mixer == MLA_:
+                m = self.mla
+                p = d * self.n_heads * (m.qk_nope_head_dim
+                                        + m.qk_rope_head_dim)
+                p += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                p += m.kv_lora_rank * self.n_heads * (m.qk_nope_head_dim
+                                                      + m.v_head_dim)
+                p += self.n_heads * m.v_head_dim * d
+            elif mixer == SSM:
+                s = self.ssm
+                d_in = s.expand * d
+                n_heads = d_in // s.head_dim
+                conv_dim = d_in + 2 * s.n_groups * s.d_state
+                p = d * (2 * d_in + 2 * s.n_groups * s.d_state + n_heads)
+                p += conv_dim * s.d_conv + n_heads + n_heads
+                p += d_in * d
+            else:
+                raise ValueError(mixer)
+            total += p * reps
+            active += p * reps
+            if ff == DENSE_FF:
+                total += mult * d * self.d_ff * reps
+                active += mult * d * self.d_ff * reps
+            elif ff == MOE_FF:
+                mo = self.moe
+                per_expert = mult * d * mo.expert_d_ff
+                shared = (mult * d * mo.shared_d_ff
+                          if mo.num_shared_experts else 0)
+                router = d * mo.num_experts
+                total += (per_expert * mo.num_experts + shared + router) \
+                    * reps
+                active += (per_expert * mo.top_k + shared + router) * reps
+            elif ff != NO_FF:
+                raise ValueError(ff)
+        norms = d * (2 * self.n_layers + 1)
+        total += norms
+        active += norms
+        if self.is_encoder_decoder:
+            enc = self.n_encoder_layers * (4 * d * d + mult * d * self.d_ff
+                                           + 2 * d)
+            xattn = self.n_layers * (4 * d * d + d)
+            total += enc + xattn
+            active += enc + xattn
+        return total, active
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,13 +5,22 @@ The layer stack is cfg.pattern (a short tuple of (mixer, ff) kinds)
 repeated cfg.n_blocks times. Block parameters and caches are stacked along
 a leading "layers" axis, as in the reference; its ``lax.scan`` over the
 stack is a Python loop here that indexes the stacked tensors (views, so a
-cache written by a layer is written into the stack). No remat: serving runs
-without grad. The reference's ``constrain`` is a sharding annotation, a
-no-op on one card, and is left out.
+cache written by a layer is written into the stack). Under grad each block
+(one repeat of the pattern) runs under the config's remat policy, the
+counterpart of the reference's ``_remat_wrap``: ``"none"`` keeps every
+activation, ``"full"`` recomputes the block in the backward pass
+(``torch.utils.checkpoint``), ``"dots"`` saves the matrix products' outputs
+and recomputes the rest (selective checkpointing, ``checkpoint_dots``).
+Serving runs without grad and takes none. The reference's ``constrain`` is
+a sharding annotation, a no-op on one card, and is left out.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ATTN, DENSE_FF, MLA_, MOE_FF, NO_FF, SSM
 from repro_torch.models import attention as attn
@@ -131,6 +140,54 @@ def _apply_layer(cfg, lp, mixer, ff, x, positions, mask, generator,
     return x, aux
 
 
+def _block(cfg, bp, x, lb, dropped, positions, mask, generator, bc=None,
+           write_cache=False):
+    """One repeat of the pattern: its layers in order, the MoE's aux terms
+    added to the running sums (the reference's scan carry)."""
+    for j, (mixer, ff) in enumerate(cfg.pattern):
+        name = f"layer{j}"
+        cache = bc[name] if bc is not None else None
+        x, aux = _apply_layer(cfg, bp[name], mixer, ff, x, positions, mask,
+                              generator, cache, write_cache)
+        if aux is not None:
+            lb = lb + aux["load_balance_loss"]
+            dropped = dropped + aux["dropped_frac"]
+    return x, lb, dropped
+
+
+# the matrix products whose outputs "dots" saves (einsum and matmul lower
+# to these); everything else is recomputed
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _remat_wrap(cfg, fn, generator=None):
+    """``fn`` under ``cfg.remat_policy`` when grad mode is on."""
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if generator is not None and cfg.moe is not None \
+            and cfg.moe.router_jitter > 0:
+        # the recomputation would draw other router noise than the forward
+        raise ValueError(f"{cfg.name}: router jitter under remat policy "
+                         f"{cfg.remat_policy!r} is not supported")
+    kwargs = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kwargs["context_fn"] = _dots_context
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+    return functools.partial(checkpoint, fn, **kwargs)
+
+
 def forward(cfg, params, tokens, generator=None, caches=None,
             write_cache=False, inputs_embeds=None, positions=None):
     """Full-sequence forward. tokens: (B,S) int (or inputs_embeds (B,S,d)).
@@ -144,16 +201,13 @@ def forward(cfg, params, tokens, generator=None, caches=None,
     mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     dropped = torch.zeros((), dtype=torch.float32, device=x.device)
+    block_fn = functools.partial(_block, cfg) if caches is not None \
+        else _remat_wrap(cfg, functools.partial(_block, cfg), generator)
     for i in range(cfg.n_blocks):
-        bp = block(params["blocks"], i)
-        for j, (mixer, ff) in enumerate(cfg.pattern):
-            name = f"layer{j}"
-            cache = block(caches[name], i) if caches is not None else None
-            x, aux = _apply_layer(cfg, bp[name], mixer, ff, x, positions,
-                                  mask, generator, cache, write_cache)
-            if aux is not None:
-                lb = lb + aux["load_balance_loss"]
-                dropped = dropped + aux["dropped_frac"]
+        bc = block(caches, i) if caches is not None else None
+        x, lb, dropped = block_fn(block(params["blocks"], i), x, lb, dropped,
+                                  positions, mask, generator, bc,
+                                  write_cache)
     x = apply_norm(cfg, x, params["final_norm"])
     aux = {"load_balance_loss": lb, "dropped_frac": dropped / cfg.n_layers}
     return x, aux, caches

@@ -1,0 +1,5 @@
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa
+                                         adamw_update, init_opt_state)
+from repro_torch.train.train_step import (TrainState,  # noqa
+                                          abstract_train_state,
+                                          init_train_state, make_train_step)

@@ -988,3 +988,98 @@ def test_serve_reduced_card_matches_cpu(cuda, arch):
             if margin[t, r] <= tol:
                 break
             assert int(argmax[t, r]) == int(toks[r, t]), (r, t)
+
+
+# ---------------------------------------------------------------------------
+# LM training (launch.train) and bandit-routed serving (serve.bandit)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", [
+    "minicpm-2b", "phi3-medium-14b", "smollm-135m", "granite-3-2b",
+    "mamba2-2.7b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+    "jamba-1.5-large-398b", "chameleon-34b", "whisper-base"])
+def test_train_step_reduced_card_matches_cpu(cuda, arch):
+    """One two-microbatch train step at REDUCED (f32, TF32 off) on the card
+    and on the CPU from the same weights: no kernel of the port launched
+    (training runs ``_sdpa``, as the reference); loss within 1e-5 and the
+    grad norm within 1e-4 relative; each stepped weight within 0.25 * lr
+    (Adam's first step moves a weight by about lr * g / (|g| + eps), so a
+    gradient at rounding level can move it by a fraction of lr either
+    way)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenStream
+    from repro_torch.launch.train import batch_at
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import (OptimizerConfig, TrainState,
+                                   init_opt_state, make_train_step)
+    _no_tf32()
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    oc = OptimizerConfig(learning_rate=1e-3, total_steps=10, warmup_steps=2)
+    stream = TokenStream(DataConfig(cfg.vocab_size, 16, 4))
+    params, _ = build(cfg, cuda).init(_gen(cuda))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev), params)
+        state = TrainState(p, init_opt_state(p),
+                           torch.Generator().manual_seed(0).get_state())
+        ops.reset_kernel_launch_counts()
+        out[dev.type] = make_train_step(build(cfg, dev), oc, 2)(
+            state, batch_at(cfg, stream, 0, 4, dev))
+        assert not any(ops.kernel_launch_counts().values())
+    (card, mc), (cpu, mh) = out["cuda"], out["cpu"]
+    assert abs(float(mc["loss"]) - float(mh["loss"])) \
+        <= 1e-5 * abs(float(mh["loss"]))
+    assert abs(float(mc["grad_norm"]) - float(mh["grad_norm"])) \
+        <= 1e-4 * float(mh["grad_norm"])
+    lr = float(mh["lr"])
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        assert float((a.cpu() - b).abs().max()) <= 0.25 * lr
+
+
+def test_bandit_request_on_the_card_launches_gp_sqdist_only(cuda):
+    """Three routed requests at REDUCED on the card, then a surrogate sync:
+    the requests launch no kernel of the port (the arms run ``_sdpa``), the
+    sync's GP fit launches ``gp_sqdist`` once, bitwise equal to its plain
+    version at the fit's shape; the greedy arm's tokens equal the CPU's on
+    the same weights wherever the CPU's top-2 margin exceeds 2e-4."""
+    import numpy as np
+    from repro_torch.explore import SurrogateConfig, SurrogateExplorer
+    from repro_torch.launch import bandit_serve
+    from repro_torch.models import build
+    from repro_torch.models.common import tree_map
+    from repro_torch.serve import bandit, teacher_forced_logits
+    _no_tf32()
+    cfg, arms, spawn = bandit_serve.make_arm_set(
+        "smollm-135m", reduced=True, new_tokens=6, device=cuda)
+    router = bandit.BanditRouter(arms, bandit.BanditConfig(lat_weight=0.0),
+                                 spawn_fn=spawn)
+    explorer = SurrogateExplorer(SurrogateConfig(
+        bounds=bandit.ARM_BOUNDS, q=1, n_init=2, seed=0, lengthscales=(0.2,),
+        n_starts=6, opt_steps=12, mc_samples=32), device=cuda)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    ops.reset_kernel_launch_counts()
+    results = [router.route(prompts) for _ in range(3)]
+    assert not any(ops.kernel_launch_counts().values())
+    assert router.sync_surrogate(explorer) is not None
+    counts = ops.kernel_launch_counts()
+    assert counts.pop("gp_sqdist") == 1 and not any(counts.values())
+    x = torch.as_tensor(explorer.x01, device=cuda)
+    assert torch.equal(ops.gp_sqdist(x, x), ref.gp_sqdist_ref(x, x))
+    greedy = results[0]
+    assert greedy.arm == arms[0].name
+    # make_arm_set's weights: a generator seeded 0 on the card
+    params, _ = build(cfg, cuda).init(_gen(cuda))
+    toks = torch.as_tensor(greedy.tokens).long()
+    cpu = teacher_forced_logits(build(cfg, "cpu"),
+                                tree_map(lambda t: t.cpu(), params),
+                                torch.as_tensor(prompts).long(), toks)
+    top2 = cpu.topk(2, dim=-1).values
+    margin, argmax = top2[..., 0] - top2[..., 1], cpu.argmax(-1)
+    for r in range(toks.shape[0]):
+        for t in range(toks.shape[1]):
+            if margin[t, r] <= 2e-4:
+                break
+            assert int(argmax[t, r]) == int(toks[r, t]), (r, t)

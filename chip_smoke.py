@@ -9,8 +9,9 @@ paper's Listings 2-5 through the workflow DSL, the island run over two
 ranks, the multi-objective qEHVI surrogate, the exploration service with
 its two tenants, LM serving (smollm-135m at full width, every arch of
 the zoo at REDUCED, four at CONFIG), LM training (smollm-135m at full
-width) and bandit-routed serving with the surrogate loop, and prints one
-JSON object per line.
+width), bandit-routed serving with the surrogate loop, explorations
+through MeshEnvironment and tasks packaged through torch.export, and
+prints one JSON object per line.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,15 @@ Phases (any failure exits non-zero):
               seven; a fifth the registers, spills, static shared memory
               and SASS opcode counts (DOMINANCE_OPCODES) of dominance.cu's
               kernels, which must be exactly the expected 29.
-  2. kernels  each kernel against its plain version at the main paths'
+  2. package  two tasks packaged through torch.export on the card
+              (core/packaging.py), saved, loaded back without their code
+              and run: the ants model's apply form at CONFIG's world, 640
+              lanes, PACKAGE_TICKS ticks, and one dominance_pass over 2048
+              rows; each bitwise equal to the direct run, launching B1 (once
+              a tick) or B2 (once) through its custom op (the "package"
+              path; see package_phase), in a child process started
+              before the build, whose exports overlap it (PackageChild).
+  3. kernels  each kernel against its plain version at the main paths'
               shapes, dominance also with the +BIG rows that ranking
               writes for empty slots (diffusion and the GP assembly
               bitwise, dominance equal, the triangular solve and the
@@ -65,14 +74,16 @@ Phases (any failure exits non-zero):
               (8192 x 3 uniform): the fused ranking and the peeling
               baseline, ranks equal, ms a ranking, the kernel's share,
               fronts, launch counts read around one of each (the
-              "ranking" path of the kernels line).
-  3. parity   simulate_batch on the card against the CPU plain path, same
+              "ranking" path of the kernels line); last, the host time a
+              call of B1 and B2 through its custom op adds to a direct
+              call of its launcher (custom_op_overhead).
+  4. parity   simulate_batch on the card against the CPU plain path, same
               Gumbel noise, REDUCED config: first-empty ticks equal; and
               gp_fit on the card against the CPU plain path at n = 80.
-  4. calibrate  launch.explore.calibrate(device="cuda", reduced=False) at
+  5. calibrate  launch.explore.calibrate(device="cuda", reduced=False) at
               the reference's defaults for 2 epochs, launch counts read
               around it; evaluation count and front checked.
-  5. surrogate  launch.explore.calibrate_surrogate(device="cuda",
+  6. surrogate  launch.explore.calibrate_surrogate(device="cuda",
               reduced=False) through the environment pool: 3 rounds of q=8
               (2 Sobol, 1 GP; depth cut from 4 to make room for phases
               train and bandit), launch counts read around it. At CONFIG every
@@ -85,13 +96,13 @@ Phases (any failure exits non-zero):
               required), and 6
               evaluations cut to 100 ticks under torch.profiler through
               both pools: where the pool's wall time goes.
-  6. surrogate_big  a SurrogateExplorer on the card holding 50,000 told
+  7. surrogate_big  a SurrogateExplorer on the card holding 50,000 told
               points of the archive benchmark's synthetic objective: a
               cold ask (the inducing-point fit: gp_sqdist and tri_solve),
               a tell of 8, a warm ask; launch counts read around it.
-  7. chunk    one replicated_batch(simulate_batch) chunk at CONFIG:
+  8. chunk    one replicated_batch(simulate_batch) chunk at CONFIG:
               4096 genomes x 5 replicates = 20480 lanes.
-  8. init     the streaming init at CONFIG, 5 replicates, chunks of 4096
+  9. init     the streaming init at CONFIG, 5 replicates, chunks of 4096
               genomes, 14336 individuals: inline, through the 3 x 2 pool at
               35 % injected failures, and stopped after 2 chunks then
               resumed (all three bitwise equal); walls, evaluations/hour,
@@ -99,7 +110,7 @@ Phases (any failure exits non-zero):
               the 200k wall projected; then calibrate seeded by that init
               through the pool, pipelined, for 2 epochs, launch counts read
               around it (see init_phase).
-  9. gp_chol  the archive-scale GP factorization of the reference's
+ 10. gp_chol  the archive-scale GP factorization of the reference's
               bench_gp_chol at full size: 4096 points in 8 dimensions,
               Matern-5/2, nugget 1e-4, block 512, five lengthscales, one
               ops.gp_chol each (the fused kernel), then the same sweep
@@ -107,7 +118,7 @@ Phases (any failure exits non-zero):
               (bitwise the same factors required); each factor within 2e-4
               of cuSOLVER's of the assembled matrix; launch counts read
               around both sweeps.
- 10. flash    the four flash-attention kernels (B8; B9's forward, dQ and
+ 11. flash    the four flash-attention kernels (B8; B9's forward, dQ and
               dK/dV) through ops.flash_attention_gqa / _or_ref / _gqa_diff
               and a smollm-135m GQA layer's gqa_apply(allow_flash=True), at
               the model's full width (H 9, KH 3, D 64), (4, 4096) in bf16
@@ -117,7 +128,7 @@ Phases (any failure exits non-zero):
               beside the bound, each kernel in turns with SDPA (median and
               min/max), and the layer's time split into projections + RoPE,
               copies and the kernel (see flash_phase).
- 11. dsl      the paper's Listings 2-5 written against the port's
+ 12. dsl      the paper's Listings 2-5 written against the port's
               workflow DSL at CONFIG: Listing 2 (one TorchTask run, equal to
               a direct simulate, 1000 diffuse_evaporate launches), Listing 3
               (seed replication + median, serial == async == cached bitwise,
@@ -131,7 +142,7 @@ Phases (any failure exits non-zero):
               also on seeded objectives with ties and +BIG rows, launch
               counts read around each Listing (the "dsl" path of the
               kernels line; see dsl_phase).
- 12. mesh     several ranks on the one card: two spawned processes joined
+ 13. mesh     several ranks on the one card: two spawned processes joined
               by gloo, both on cuda:0, run the row-sharded dominance sweep
               at three shapes (8192 x 3; the archive merge's 320-row pool;
               997 rows in 3 groups, padded) equal to the single pass and
@@ -139,9 +150,12 @@ Phases (any failure exits non-zero):
               plain version and timed, and calibrate over a data=2 mesh
               bitwise equal to phase calibrate's one-rank run; then the
               streaming init through make_init_pool(0.35, pool_devices=1),
-              bitwise equal to phase init's inline leg (see mesh_phase; its
-              launches are the "mesh" path of the kernels line).
- 13. surrogate_mo  the multi-objective qEHVI surrogate: calibrate_
+              bitwise equal to phase init's inline leg; MeshEnvironment
+              exploring an ants TorchTask over the two ranks and over one,
+              each context bitwise equal to LocalEnvironment's (see
+              mesh_phase; its launches are the "mesh" and "meshenv" paths
+              of the kernels line).
+ 14. surrogate_mo  the multi-objective qEHVI surrogate: calibrate_
               surrogate_mo at CONFIG (2 Sobol rounds and 1 qEHVI round of
               4, 3 replicates) through make_init_pool(0.35), the
               launcher's default 3 x 2 pool, resumed inline from its
@@ -155,7 +169,7 @@ Phases (any failure exits non-zero):
               surrogate_mo_phase; the calibrate run and its resume give
               the "surrogate_mo" path of the kernels line, the 8192-point
               asks the "surrogate_mo_big" path).
- 14. service  calibrate_service at CONFIG: a 1024-individual GA init and a
+ 15. service  calibrate_service at CONFIG: a 1024-individual GA init and a
               3-round surrogate as two tenants of one ExplorationService
               over make_init_pool(0.35, pool_devices=1) (some firing
               retried), the GA tenant's best 128 ranked;
@@ -164,7 +178,7 @@ Phases (any failure exits non-zero):
               results); the GA tenant bitwise equal to an inline streaming
               init, the surrogate tenant to phase surrogate's first 24
               evaluations (see service_phase; the "service" path).
- 15. serve    LM serving through launch.serve.serve_once (engine.generate
+ 16. serve    LM serving through launch.serve.serve_once (engine.generate
               over Model.prefill / decode, _sdpa attention as the
               reference serves, so no kernel of the port runs: every launch
               count must stay 0): smollm-135m at CONFIG, batch 4, prompt
@@ -176,7 +190,7 @@ Phases (any failure exits non-zero):
               the CPU the same way; SERVE_CONFIG_ARCHS at CONFIG (finite
               logits, tokens in range). See serve_phase; its (a) gives the
               "serve" path of the kernels line.
- 16. train    LM training through launch.train.train_loop (make_train_step
+ 17. train    LM training through launch.train.train_loop (make_train_step
               over Model.loss, _sdpa attention as the reference trains: no
               kernel of the port runs, every launch count must stay 0):
               smollm-135m at CONFIG in f32, 16 x 2048 tokens a step in 8
@@ -186,14 +200,14 @@ Phases (any failure exits non-zero):
               resumed (bitwise equal, both under deterministic algorithms),
               one step on the card against the CPU at CONFIG and for every
               arch at REDUCED, two bf16 steps. See train_phase.
- 17. bandit   bandit-routed serving through launch.bandit_serve.run_bandit
+ 18. bandit   bandit-routed serving through launch.bandit_serve.run_bandit
               at smollm-135m CONFIG (24 requests, three arms, UCB, the
               surrogate every 8): inline, its launches the "bandit" path
               (gp_sqdist once a GP fit, nothing else); at lat_weight 0
               inline and through 35 % injected failures (journals equal
               but for latency); gp_sqdist bitwise at the fits' shapes. See
               bandit_phase.
- 18. the kernels line, the card's name and power limit, and the last line
+ 19. the kernels line, the card's name and power limit, and the last line
      {"ok": true, "device": {...}}.
 Needs one CUDA device; imports nothing of JAX.
 """
@@ -1437,6 +1451,41 @@ CAL_FLAGS = dict(n_islands=8, mu=16, lam=16, steps_per_epoch=4, epochs=2,
                  replicates=5, archive_size=256, merge_top_k=8)
 MESH_RANKS = 2
 MESH_TIMEOUT_S = 300
+# phase mesh's MeshEnvironment legs: an ants TorchTask on CONFIG's world and
+# ants, cut to MESHENV_TICKS ticks, 4 replicate lanes a context ranked by
+# B2; its outputs are the objectives, their ranks and the summed final
+# chemical field (the signal: at CONFIG every objective is the cap)
+MESHENV_TICKS = 200
+MESHENV_CONTEXTS = [{"gDiffusionRate": d, "gEvaporationRate": e, "seed": s}
+                    for d, e, s in ((30.0, 10.0, 3), (70.0, 40.0, 5),
+                                    (50.0, 5.0, 7), (90.0, 20.0, 11))]
+
+
+def meshenv_task(torch):
+    """The ants ``TorchTask`` of phase mesh's MeshEnvironment legs: its
+    generator is built from the ``seed`` input on every call, on the
+    current CUDA device."""
+    from repro_torch.ants import simulate_state
+    from repro_torch.configs.ants_netlogo import CONFIG
+    from repro_torch.core import TorchTask, Val
+    from repro_torch.evolution import nsga2
+    from repro_torch.runtime.device import make_generator
+    cfg = dataclasses.replace(CONFIG, max_ticks=MESHENV_TICKS)
+
+    def ants(gDiffusionRate, gEvaporationRate, seed):
+        dev = torch.device("cuda")
+        state = simulate_state(
+            cfg, torch.full((4,), gDiffusionRate, device=dev),
+            torch.full((4,), gEvaporationRate, device=dev),
+            generator=make_generator(int(seed), dev))
+        obj = state.ticks_empty.to(torch.float32)
+        return {"objectives": obj, "ranks": nsga2.nondominated_ranks(obj),
+                "chem": state.chem.sum(0)}
+
+    return TorchTask("ants", ants, inputs=(
+        Val("gDiffusionRate", float), Val("gEvaporationRate", float),
+        Val("seed", int)), outputs=(Val("objectives"), Val("ranks"),
+                                     Val("chem")))
 
 
 def mesh_rank(argv) -> int:
@@ -1444,19 +1493,21 @@ def mesh_rank(argv) -> int:
     STORE OUT``: joins a gloo process group through a FileStore at STORE,
     runs (a) the sharded dominance sweep at three shapes, B1 and B2 at the
     shapes the island run gives a rank, against their plain versions, and
-    the archive merge sharded and local, and (b) the island calibration
-    over a ``data=WORLD`` mesh, writes OUT/rank{RANK}.json
-    (checks, times, launches, walls) and .pt (the final archive and front),
-    and prints nothing of the contract."""
+    the archive merge sharded and local, (b) the island calibration
+    over a ``data=WORLD`` mesh and (c) ``MeshEnvironment(mesh)`` exploring
+    ``meshenv_task`` over MESHENV_CONTEXTS, writes OUT/rank{RANK}.json
+    (checks, times, launches, walls) and .pt (the final archive and front,
+    the explored outputs), and prints nothing of the contract."""
     import datetime
     import functools
 
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import MeshEnvironment
     from repro_torch.evolution import archive as tarchive
     from repro_torch.evolution import nsga2
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import diffusion, dominance, ops, ref
     from repro_torch.launch import explore
     from repro_torch.launch import mesh as tmesh
     from repro_torch.runtime import sharding
@@ -1567,11 +1618,16 @@ def mesh_rank(argv) -> int:
         require(torch.equal(got, plain),
                 f"diffuse_evaporate bitwise at ({lanes},72,72), a rank's "
                 f"block; max abs err {err}")
+        # the custom op's route against the direct launcher
+        require(torch.equal(got, diffusion.diffuse_evaporate(chem, rate,
+                                                             evap)),
+                f"diffuse_evaporate's op != its launcher at ({lanes},72,72)")
         b_ms, b_by = bound_ms(2 * chem.numel() * 4 + 2 * lanes * 4,
                               chem.numel() * DIFFUSION_OPS_PER_PATCH)
         result["step_kernels"].append({
             "kernel": "diffuse_evaporate", "shape": [lanes, 72, 72],
-            "bitwise": True, "max_abs_err": err, "bound_ms": b_ms,
+            "bitwise": True, "op_equals_launcher": True,
+            "max_abs_err": err, "bound_ms": b_ms,
             "bound_by": b_by,
             **alone(lambda: ops.diffuse_evaporate(chem, rate, evap),
                     lambda: ref.diffuse_evaporate_ref(chem, rate, evap))})
@@ -1588,6 +1644,9 @@ def mesh_rank(argv) -> int:
         require(torch.equal(kc, pc) and torch.equal(kb, pb),
                 f"dominance_pass at {n} rows in {per_rank} groups of {size}, "
                 f"a rank's block, against its plain version")
+        lc, lb = dominance.dominance_pass(f, None, g, None)
+        require(torch.equal(kc, lc) and torch.equal(kb, lb),
+                f"dominance_pass's op != its launcher at {n} rows")
         words = -(-n // 32)
         b_ms, b_by = bound_ms(n * 3 * 4 + n * 4 + n * 4 + n * words * 4,
                               per_rank * size * size * 2 * 3)
@@ -1595,6 +1654,7 @@ def mesh_rank(argv) -> int:
             "kernel": "dominance_pass", "rows": n, "groups": per_rank,
             "group_rows": size, "big_rows": n // 4,
             "dominated_rows": int((pc > 0).sum()), "equal": True,
+            "op_equals_launcher": True,
             "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
             **alone(lambda: ops.dominance_pass(f, groups=g),
                     lambda: ref.dominance_pass_ref(f, groups=g))})
@@ -1640,8 +1700,25 @@ def mesh_rank(argv) -> int:
         files = sorted(p.name for p in Path(run_dir).iterdir())
     result.update(calibrate_wall_s=wall, launches=launches, files=files,
                   evaluations=state.total_evaluations)
+
+    # (c) MeshEnvironment over this mesh: each rank its block of contexts
+    env = MeshEnvironment(mesh)
+    task = meshenv_task(torch)
+    dist.barrier()
+    ops.reset_kernel_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    explored = env.map_explore(task, MESHENV_CONTEXTS)
+    torch.cuda.synchronize()
+    result["meshenv"] = {"wall_s": time.perf_counter() - t0,
+                         "lanes": [env.last_lanes.start,
+                                   env.last_lanes.stop],
+                         "launches": ops.kernel_launch_counts()}
     torch.save({"archive": [t.cpu() for t in state.archive],
-                "front": front}, Path(out) / f"rank{rank}.pt")
+                "front": front,
+                "meshenv": [{k: v.cpu() for k, v in o.items()}
+                            for o in explored]},
+               Path(out) / f"rank{rank}.pt")
     (Path(out) / f"rank{rank}.json").write_text(json.dumps(result))
     dist.destroy_process_group()
     return 0
@@ -1670,14 +1747,22 @@ def mesh_phase(torch, dev, one_rank, init_inline) -> dict:
     launches counted from 0 in each rank. (c) The streaming init's fourth
     leg, through ``make_init_pool(0.35, pool_devices=1)`` (one
     DeviceEnvironment of the card), bitwise equal to ``init_inline``
-    (phase init's inline leg). Every child is joined under a timeout; a
-    child that fails fails the phase. Returns the launches of (b), summed
-    over the ranks (the "mesh" path of the kernels line)."""
+    (phase init's inline leg). (d) ``MeshEnvironment`` exploring
+    ``meshenv_task`` over MESHENV_CONTEXTS: each rank of (a)'s mesh its
+    block of two contexts, then on one rank (``make_host_mesh``) all four
+    here; every context's outputs bitwise equal to ``LocalEnvironment``'s.
+    Every child is joined under a timeout; a child that fails fails the
+    phase. Returns the launches of (b), summed over the ranks (the "mesh"
+    path of the kernels line), and those of (d)'s MeshEnvironment legs, one
+    rank and two summed (the "meshenv" path)."""
     import numpy as np
 
     from repro_torch.configs.ants_netlogo import CONFIG
+    from repro_torch.core import LocalEnvironment, MeshEnvironment
     from repro_torch.evolution import ga
+    from repro_torch.kernels import ops
     from repro_torch.launch import explore
+    from repro_torch.launch import mesh as tmesh
 
     t_phase = time.monotonic()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1781,12 +1866,61 @@ def mesh_phase(torch, dev, one_rank, init_inline) -> dict:
           "attempts": d.attempts, "chunks": d.chunks_total, "wall_s": wall_d,
           "evaluations_per_hour": 14336 / wall_d * 3600,
           "equal_to_inline": True})
+    # (d) MeshEnvironment: one rank here, against LocalEnvironment and the
+    # two ranks' runs
+    task = meshenv_task(torch)
+    env = MeshEnvironment(tmesh.make_host_mesh("cuda"))
+    ops.reset_kernel_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = env.map_explore(task, MESHENV_CONTEXTS)
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    one_launches = ops.kernel_launch_counts()
+    t0 = time.perf_counter()
+    local = LocalEnvironment().map_explore(task, MESHENV_CONTEXTS)
+    torch.cuda.synchronize()
+    wall_local = time.perf_counter() - t0
+    n_ctx = len(MESHENV_CONTEXTS)
+    for leg, outs in [("one rank", one)] + [
+            (f"rank {r} of {MESH_RANKS}", got["meshenv"])
+            for r, got in enumerate(saved)]:
+        require(len(outs) == n_ctx and all(
+            torch.equal(o[k].cpu(), lo[k].cpu())
+            for o, lo in zip(outs, local) for k in lo),
+            f"MeshEnvironment ({leg}) differs from LocalEnvironment")
+    per_ctx = {"diffuse_evaporate": MESHENV_TICKS, "dominance_pass": 1}
+    require(all(one_launches[k] == n_ctx * v for k, v in per_ctx.items()),
+            f"MeshEnvironment one rank: launches {one_launches}")
+    for r, res in enumerate(ranks):
+        got = res["meshenv"]
+        b = n_ctx // MESH_RANKS
+        require(got["lanes"] == [r * b, (r + 1) * b]
+                and all(got["launches"][k] == b * v
+                        for k, v in per_ctx.items()),
+                f"MeshEnvironment rank {r}: lanes {got['lanes']}, "
+                f"launches {got['launches']}")
+    chem = torch.stack([lo["chem"] for lo in local])
+    require(bool((chem > 0).any()) and len({float(c.sum()) for c in chem})
+            == n_ctx, "MeshEnvironment's task: the chemical fields carry "
+            "no per-context signal")
+    meshenv_total = dict(one_launches)
+    for res in ranks:
+        for k, v in res["meshenv"]["launches"].items():
+            meshenv_total[k] += v
+    emit({"phase": "mesh", "what": "mesh_environment", "config": "CONFIG",
+          "ticks": MESHENV_TICKS, "contexts": n_ctx, "lanes_a_context": 4,
+          "one_rank_wall_s": wall_one, "local_wall_s": wall_local,
+          "rank_walls_s": [res["meshenv"]["wall_s"] for res in ranks],
+          "rank_lanes": [res["meshenv"]["lanes"] for res in ranks],
+          "equal_to_local": True, "launches": {
+              k: meshenv_total[k] for k in per_ctx}})
     emit({"phase": "mesh", "seconds": time.monotonic() - t_phase})
     total = {}
     for res in ranks:
         for k, v in res["launches"].items():
             total[k] = total.get(k, 0) + v
-    return total
+    return total, meshenv_total
 
 
 # Jobs in flight on one pool contend for the host: on one H100 a job ran
@@ -2789,6 +2923,241 @@ def bandit_phase(torch, dev) -> dict:
     return bandit_launches
 
 
+def custom_op_overhead(torch, dev, gen, calls: int = 200,
+                       turns: int = 11) -> dict:
+    """The host time a call of B1 and B2 through its ``torch.library``
+    custom op (``kernels.library``) takes beside a direct call of its
+    launcher, at calibrate's shapes: B1 at (640, 72, 72), B2 at 256 rows in
+    8 groups. Each sample enqueues ``calls`` calls on the host clock after
+    a synchronize (the card keeps pace: a launch is queued, not waited
+    for); samples in turns, launcher, op, op, launcher, ``turns`` times;
+    medians in microseconds a call. The op's outputs equal the launcher's.
+    These launches compare; they are in no path's counts."""
+    from repro_torch.kernels import diffusion, dominance, library
+
+    chem = torch.rand((640, 72, 72), generator=gen, device=dev) * 100.0
+    rate = torch.rand((640,), generator=gen, device=dev)
+    evap = torch.rand((640,), generator=gen, device=dev) * 0.5
+    rows = torch.randint(0, 1001, (256, 3), generator=gen,
+                         device=dev).to(torch.float32)
+    groups = torch.arange(8, device=dev, dtype=torch.int32) \
+        .repeat_interleave(32)
+    pairs = {
+        "diffuse_evaporate": (
+            lambda: diffusion.diffuse_evaporate(chem, rate, evap),
+            lambda: library.diffuse_evaporate(chem, rate, evap)),
+        "dominance_pass": (
+            lambda: dominance.dominance_pass(rows, None, groups, None),
+            lambda: library.dominance_pass(rows, None, groups, None)),
+    }
+    require(torch.equal(pairs["diffuse_evaporate"][0](),
+                        pairs["diffuse_evaporate"][1]()),
+            "diffuse_evaporate: the custom op differs from its launcher")
+    require(all(torch.equal(a, b) for a, b in zip(
+        pairs["dominance_pass"][0](), pairs["dominance_pass"][1]())),
+        "dominance_pass: the custom op differs from its launcher")
+
+    def host_us(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        took = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return took / calls * 1e6
+
+    out = {}
+    for name, (direct, op) in pairs.items():
+        host_us(direct), host_us(op)                   # warm-up
+        d_us, o_us = [], []
+        for _ in range(turns):
+            d_us.append(host_us(direct))
+            o_us += [host_us(op), host_us(op)]
+            d_us.append(host_us(direct))
+        out[name] = {"launcher_host_us": statistics.median(d_us),
+                     "op_host_us": statistics.median(o_us),
+                     "added_host_us": statistics.median(o_us)
+                     - statistics.median(d_us),
+                     "launcher_min_max_us": [min(d_us), max(d_us)],
+                     "op_min_max_us": [min(o_us), max(o_us)],
+                     "op_equals_launcher": True}
+    out["shapes"] = {"diffuse_evaporate": [640, 72, 72],
+                     "dominance_pass": [256, 3, "8 groups"]}
+    out["calls_a_sample"], out["samples"] = calls, 2 * turns
+    return out
+
+
+# phase package: the ants run at CONFIG's world and ants, 640 lanes (a
+# calibrate call's), cut to PACKAGE_TICKS ticks by export time: on the
+# card's host torch.export's first call spends ~12 s in imports, then
+# unrolls the tick loop at ~0.3 s a tick (~90 graph nodes) and loads it at
+# ~0.16 s a tick (PERF.md); at 30 ticks the chemical field is
+# already non-zero. One B2 sweep of 2048 rows (a streaming top-k block)
+PACKAGE_TICKS = 30
+PACKAGE_LANES = 640
+PACKAGE_ROWS = 2048
+
+
+def package_phase(torch, dev, before_load=lambda: None) -> dict:
+    """Phase ``package``: two tasks packaged with ``core.packaging.package``
+    on the card (``torch.export`` at CUDA example tensors), saved, loaded
+    back with ``packaging.load`` (no task code) and run on the card: (a)
+    the ants model in its apply form, a run of PACKAGE_LANES lanes at
+    CONFIG's 72 x 72 world and 125 ants from given Gumbel noise, returning
+    the objectives and the final chemical field; (b) one
+    ``kernels.ops.dominance_pass`` over (PACKAGE_ROWS, 3) seeded objectives
+    with ties. Both are exported first, then ``before_load()`` runs (the
+    child waits there for the parent's build). Each rehydrated run is
+    bitwise equal to the direct run and launches its kernel through the
+    custom op (B1 once a tick, B2 once), nothing else; the manifest names
+    the device and the op. Returns the launches of the two rehydrated runs
+    (the "package" path of the kernels line)."""
+    from repro_torch.ants import model, simulate_state
+    from repro_torch.configs.ants_netlogo import CONFIG
+    from repro_torch.core import packaging
+    from repro_torch.kernels import ops
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(CONFIG, max_ticks=PACKAGE_TICKS)
+
+    def ants_apply(diffusion, evaporation, noise):
+        state = simulate_state(cfg, diffusion, evaporation, noise=noise)
+        return state.ticks_empty.to(torch.float32), state.chem
+
+    def dominance(objectives):
+        return ops.dominance_pass(objectives)
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    n = PACKAGE_LANES
+    ants_args = (torch.rand((n,), generator=gen, device=dev) * 99,
+                 torch.rand((n,), generator=gen, device=dev) * 99,
+                 model.draw_gumbel(gen, (PACKAGE_TICKS, n, cfg.population,
+                                         8), dev))
+    dom_args = (torch.randint(0, 1001, (PACKAGE_ROWS, 3), generator=gen,
+                              device=dev).to(torch.float32),)
+    tasks = (("ants", ants_apply, ants_args, "diffuse_evaporate",
+              PACKAGE_TICKS),
+             ("dominance", dominance, dom_args, "dominance_pass", 1))
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        export_s = {}
+        for name, fn, args, _, _ in tasks:
+            t0 = time.perf_counter()
+            packaging.package(fn, args, str(Path(tmp) / name), name=name)
+            export_s[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        before_load()
+        waited_s = time.perf_counter() - t0
+        for name, fn, args, kernel, expect in tasks:
+            path = str(Path(tmp) / name)
+            t0 = time.perf_counter()
+            run = packaging.load(path)
+            load_s = time.perf_counter() - t0
+            ops.reset_kernel_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = run(*args)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = ops.kernel_launch_counts()
+            t0 = time.perf_counter()
+            want = fn(*args)
+            torch.cuda.synchronize()
+            direct_s = time.perf_counter() - t0
+            require(len(got) == len(want) and all(
+                g.device.type == "cuda" and torch.equal(g, w)
+                for g, w in zip(got, want)),
+                f"package {name}: the rehydrated run differs from the "
+                f"direct run")
+            require(launches[kernel] == expect and sum(launches.values())
+                    == expect, f"package {name}: launches {launches}")
+            m = packaging.manifest(path)
+            require(m["device"] == "cuda"
+                    and m["custom_ops"] == [f"repro_torch::{kernel}"],
+                    f"package {name}: manifest {m}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            emit({"phase": "package", "task": name, "manifest": m,
+                  "export_s": export_s[name], "load_s": load_s,
+                  "run_s": run_s, "direct_s": direct_s, "bitwise": True,
+                  "launches": {kernel: launches[kernel]},
+                  **({"ticks": PACKAGE_TICKS, "lanes": n,
+                      "chem_max": float(want[1].max())}
+                     if name == "ants" else {})})
+    emit({"phase": "package", "waited_for_build_s": waited_s})
+    emit({"phase": "package", "seconds": time.monotonic() - t_phase})
+    return total
+
+
+PACKAGE_TIMEOUT_S = 300
+
+
+def package_rank(argv) -> int:
+    """Phase ``package`` in a process of its own, as ``chip_smoke.py
+    --package OUT READY``: exports the two tasks (fake tensors: no kernel
+    needed), waits for the file READY (the parent's build done), then loads
+    and runs them (``package_phase``), prints its lines, writes its
+    launches to OUT, and prints nothing of the contract."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    ready = Path(argv[1])
+
+    def wait_for_build():
+        deadline = time.monotonic() + PACKAGE_TIMEOUT_S
+        while not ready.exists():
+            require(time.monotonic() < deadline,
+                    "phase package: the parent's build did not finish")
+            time.sleep(0.1)
+
+    launches = package_phase(torch, torch.device("cuda"),
+                             before_load=wait_for_build)
+    Path(argv[0]).write_text(json.dumps(launches))
+    return 0
+
+
+class PackageChild:
+    """Phase ``package`` (``package_rank``) in a child process started
+    before the build, so that its exports (~25 s, CPU only) overlap the
+    nvcc builds; ``finish`` tells it the kernels are built, waits for it
+    and passes its lines on. In a fresh process torch.export took ~0.25 s
+    a tick; inside this script's long process 1.1-2.2 s (PERF.md)."""
+
+    def __init__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        d = Path(self.tmp.name)
+        self.out, self.ready = d / "launches.json", d / "built"
+        self.log, self.err = open(d / "out.log", "w"), open(d / "err.log",
+                                                             "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--package",
+             str(self.out), str(self.ready)], stdout=self.log,
+            stderr=self.err, cwd=ROOT)
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        self.err.close()
+        self.tmp.cleanup()
+
+    def finish(self) -> dict:
+        """The child's launches (the "package" path of the kernels
+        line)."""
+        try:
+            self.ready.touch()
+            rc = self.proc.wait(timeout=PACKAGE_TIMEOUT_S)
+            d = Path(self.tmp.name)
+            sys.stdout.write((d / "out.log").read_text())
+            sys.stdout.flush()
+            if rc != 0:
+                print((d / "err.log").read_text()[-4000:], file=sys.stderr)
+            require(rc == 0, f"phase package's process exited {rc}")
+            return json.loads(self.out.read_text())
+        finally:
+            self.kill()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2823,22 +3192,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    # -- 1. build ----------------------------------------------------------
+    # -- 1. build, with phase 2's exports in a child process beside it -----
+    package = PackageChild()
     t0 = time.monotonic()
-    secs = build.build()
-    emit({"phase": "build", "seconds": time.monotonic() - t0,
-          "per_source_s": secs,
-          "ptxas": {name: [line.strip() for line in build.build_log(name)
-                           .splitlines() if "registers" in line]
-                    for name in build.SOURCES}})
-    emit({"phase": "build", "flash_kernels": flash_build_report(build)})
-    emit({"phase": "build", "cholesky_kernels": chol_build_report(build)})
-    emit({"phase": "build",
-          "stencil_solve_kernels": stencil_solve_build_report(build)})
-    emit({"phase": "build",
-          "dominance_kernels": dominance_build_report(build)})
+    try:
+        secs = build.build()
+        emit({"phase": "build", "seconds": time.monotonic() - t0,
+              "per_source_s": secs,
+              "ptxas": {name: [line.strip() for line in
+                               build.build_log(name).splitlines()
+                               if "registers" in line]
+                        for name in build.SOURCES}})
+        emit({"phase": "build", "flash_kernels": flash_build_report(build)})
+        emit({"phase": "build",
+              "cholesky_kernels": chol_build_report(build)})
+        emit({"phase": "build",
+              "stencil_solve_kernels": stencil_solve_build_report(build)})
+        emit({"phase": "build",
+              "dominance_kernels": dominance_build_report(build)})
+    except BaseException:
+        package.kill()
+        raise
 
-    # -- 2. kernels against their plain versions ----------------------------
+    # -- 2. packaged tasks rehydrated on the card: B1 and B2 as operators
+    package_launches = package.finish()
+
+    stamp()
+
+    # -- 3. kernels against their plain versions ----------------------------
     def field(n, w=72):
         chem = torch.rand((n, w, w), generator=gen, device=dev) * 100.0
         rate = torch.rand((n,), generator=gen, device=dev)
@@ -3270,9 +3651,15 @@ def main() -> int:
         results[("tri_solve", trans, n, m)] = r
         emit({"phase": "kernels", **r})
 
+    # the custom ops' cost on the host: B1 at calibrate's 640 lanes and B2 at
+    # its 256 rows in 8 groups, each through its torch.library op (the
+    # route of kernels.ops) and through its launcher, in turns
+    emit({"phase": "kernels", "check": "custom_op_overhead",
+          **custom_op_overhead(torch, dev, gen)})
+
     stamp()
 
-    # -- 3. the card against the CPU plain path on a small input -------------
+    # -- 4. the card against the CPU plain path on a small input -------------
     rates = torch.tensor([10.0, 30.0, 50.0, 70.0, 90.0, 20.0, 60.0, 95.0])
     evaps = torch.tensor([5.0, 10.0, 20.0, 5.0, 40.0, 15.0, 2.0, 60.0])
     noise = model.draw_gumbel(torch.Generator().manual_seed(1),
@@ -3321,7 +3708,7 @@ def main() -> int:
 
     stamp()
 
-    # -- 4. the main path: calibrate at the paper's model size ---------------
+    # -- 5. the main path: calibrate at the paper's model size ---------------
     flags = CAL_FLAGS
     with tempfile.TemporaryDirectory() as out:
         ops.reset_kernel_launch_counts()
@@ -3370,7 +3757,7 @@ def main() -> int:
 
     stamp()
 
-    # -- 5. the surrogate path at the paper's model size ----------------------
+    # -- 6. the surrogate path at the paper's model size ----------------------
     # depth cut from 4 rounds to 3 (2 Sobol, 1 GP): the whole script ran
     # 1089 s to the end of phase serve on a slow machine, before phases
     # train and bandit
@@ -3507,7 +3894,7 @@ def main() -> int:
 
     stamp()
 
-    # -- 6. the surrogate at archive scale: 50,000 told points ---------------
+    # -- 7. the surrogate at archive scale: 50,000 told points ---------------
     def synthetic(x):       # the archive benchmark's objective
         return ((x[:, 0] - 0.3) ** 2 + (x[:, 1] - 0.7) ** 2
                 + 0.01 * np.sin(17 * x[:, 0])).astype(np.float32)
@@ -3560,7 +3947,7 @@ def main() -> int:
 
     stamp()
 
-    # -- 7. one chunk of the streaming init ---------------------------------
+    # -- 8. one chunk of the streaming init ---------------------------------
     genomes = torch.rand((4096, 2), generator=gen, device=dev) * 99
     eval_fn = explore.ants_eval_fn(CONFIG, 5)
     ops.reset_kernel_launch_counts()
@@ -3586,12 +3973,12 @@ def main() -> int:
 
     stamp()
 
-    # -- 8. the streaming init through the pool, seeding a pipelined run -----
+    # -- 9. the streaming init through the pool, seeding a pipelined run -----
     init_launches, init_inline = init_phase(torch, dev, gen)
 
     stamp()
 
-    # -- 9. the archive-scale GP factorization: bench_gp_chol at full size ---
+    # -- 10. the archive-scale GP factorization: bench_gp_chol at full size ---
     n_gp, block = 4096, 512
     grid = (0.05, 0.1, 0.2, 0.4, 0.8)
     gkw = dict(kind="matern52", nugget=1e-4)
@@ -3672,50 +4059,51 @@ def main() -> int:
 
     stamp()
 
-    # -- 10. flash attention at smollm-135m's full width ----------------------
+    # -- 11. flash attention at smollm-135m's full width ----------------------
     flash_rows, flash_launches = flash_phase(torch, dev, gen)
     results.update(flash_rows)
 
     stamp()
 
-    # -- 11. the paper's Listings 2-5 through the port's DSL -----------------
+    # -- 12. the paper's Listings 2-5 through the port's DSL -----------------
     dsl_launches = dsl_phase(torch, dev)
 
     stamp()
 
-    # -- 12. several ranks on the card: the sharded sweep, the island mesh,
+    # -- 13. several ranks on the card: the sharded sweep, the island mesh,
     # the device-set pool member
-    mesh_launches = mesh_phase(torch, dev, one_rank, init_inline)
+    mesh_launches, meshenv_launches = mesh_phase(torch, dev, one_rank,
+                                                 init_inline)
 
     stamp()
 
-    # -- 13. the multi-objective qEHVI surrogate and the local-GP ensemble
+    # -- 14. the multi-objective qEHVI surrogate and the local-GP ensemble
     mo_launches, mo_big_launches = surrogate_mo_phase(torch, dev, results)
 
     stamp()
 
-    # -- 14. the exploration service: two tenants over one pool
+    # -- 15. the exploration service: two tenants over one pool
     svc_launches = service_phase(torch, dev, sur_res)
 
     stamp()
 
-    # -- 15. LM serving: smollm-135m at full width, every arch at REDUCED,
+    # -- 16. LM serving: smollm-135m at full width, every arch at REDUCED,
     # four more at CONFIG; no kernel of the port on this path
     serve_launches = serve_phase(torch, dev)
 
     stamp()
 
-    # -- 16. LM training: smollm-135m at full width; no kernel on this path
+    # -- 17. LM training: smollm-135m at full width; no kernel on this path
     train_launches = train_phase(torch, dev)
 
     stamp()
 
-    # -- 17. bandit-routed serving with the surrogate loop: B4 in its fits
+    # -- 18. bandit-routed serving with the surrogate loop: B4 in its fits
     bandit_launches = bandit_phase(torch, dev)
 
     stamp()
 
-    # -- 18. the kernels line, the card, the contract line -------------------
+    # -- 19. the kernels line, the card, the contract line -------------------
     # (kernel, result key, source, TPU kernel, the path whose run gives the
     # launches); every path's counts are listed beside it
     by_path = {"ranking": rank_launches,
@@ -3726,7 +4114,8 @@ def main() -> int:
                "mesh": mesh_launches, "surrogate_mo": mo_launches,
                "surrogate_mo_big": mo_big_launches,
                "service": svc_launches, "serve": serve_launches,
-               "train": train_launches, "bandit": bandit_launches}
+               "train": train_launches, "bandit": bandit_launches,
+               "meshenv": meshenv_launches, "package": package_launches}
     rows = (
         ("diffuse_evaporate", ("diffuse_evaporate", 640), "diffusion.cu",
          "src/repro/kernels/diffusion.py:89", "calibrate"),
@@ -3789,4 +4178,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         sys.exit(mesh_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--package"]:
+        sys.exit(package_rank(sys.argv[2:]))
     sys.exit(main())

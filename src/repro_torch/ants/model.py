@@ -179,6 +179,16 @@ def simulate_batch(cfg: AntsConfig, diffusion_rates, evaporation_rates, *,
     draws the whole batch's noise and keeps theirs, so every lane sees the
     numbers it would in the whole batch.
     Returns (N, 3) f32 objectives (first-empty ticks, lower = better)."""
+    return simulate_state(cfg, diffusion_rates, evaporation_rates,
+                          generator=generator, noise=noise,
+                          rows=rows).ticks_empty.to(torch.float32)
+
+
+def simulate_state(cfg: AntsConfig, diffusion_rates, evaporation_rates, *,
+                   generator: torch.Generator = None,
+                   noise: torch.Tensor = None, rows=None) -> AntsState:
+    """``simulate_batch``'s run (the same arguments), returning its final
+    ``AntsState``: the objectives are its ``ticks_empty``."""
     if (generator is None) == (noise is None):
         raise ValueError("pass exactly one of generator= or noise=")
     device = diffusion_rates.device
@@ -190,7 +200,7 @@ def simulate_batch(cfg: AntsConfig, diffusion_rates, evaporation_rates, *,
         if n == 0:      # the draws of the other lanes, nothing to simulate
             for _ in range(cfg.max_ticks):
                 draw_gumbel(generator, shape, device)
-            return torch.zeros((0, 3), dtype=torch.float32, device=device)
+            return init_state(cfg, 0, device)
     diffusion = (diffusion_rates.to(torch.float32) / 100.0).clamp(0.0, 1.0)
     evaporation = (evaporation_rates.to(torch.float32) / 100.0).clamp(0.0,
                                                                      1.0)
@@ -202,7 +212,7 @@ def simulate_batch(cfg: AntsConfig, diffusion_rates, evaporation_rates, *,
         if rows is not None:
             gumbel = rows.take(gumbel)
         state = step(state, tick, diffusion, evaporation, gumbel)
-    return state.ticks_empty.to(torch.float32)
+    return state
 
 
 def simulate(cfg: AntsConfig, diffusion_rate: float, evaporation_rate: float,

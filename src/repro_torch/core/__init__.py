@@ -1,6 +1,6 @@
 """The paper's primary contribution: a workflow engine for distributed model
 exploration — tasks, dataflow, hooks, environments, and the DSL. Ported from
-``repro.core``, as far as the port has come (no mesh environment yet)."""
+``repro.core``."""
 from repro_torch.core.prototype import Val, Context  # noqa
 from repro_torch.core.task import Task, PyTask, TorchTask, TaskError  # noqa
 from repro_torch.core.workflow import Capsule, Workflow, Transition  # noqa
@@ -11,6 +11,8 @@ from repro_torch.core.source import (Source, ConstantSource,  # noqa
                                      CSVSource, FunctionSource)
 from repro_torch.core.environment import (Environment,  # noqa
                                           LocalEnvironment,
+                                          MeshEnvironment,
+                                          EGIEnvironment,
                                           DeviceEnvironment,
                                           make_device_members,
                                           pinned_device)

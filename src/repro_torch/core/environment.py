@@ -11,17 +11,19 @@ first result) survives as ``speculative`` execution for host-side PyTasks;
 retries with backoff handle transient failures; ``map_explore`` runs an
 exploration fan-out. ``DeviceEnvironment`` is a pool member that owns a
 set of devices and runs each attempt on one of them;
-``make_device_members`` splits the local devices into such members. The
-reference's mesh environment is not ported yet.
+``make_device_members`` splits the local devices into such members.
+``MeshEnvironment`` shards an exploration's lanes over the ranks of a mesh,
+and ``EGIEnvironment`` is the paper's name for the two-pod one.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
 import dataclasses
+import math
 import threading
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -559,3 +561,161 @@ def make_device_members(devices=None, k: int = 2, *, device="cuda",
             sub, name=f"dev{i}[{','.join(map(_device_id, sub))}]",
             faults=faults(i) if callable(faults) else faults, **kw))
     return members
+
+
+# ---------------------------------------------------------------------------
+# Mesh environments
+# ---------------------------------------------------------------------------
+class MeshEnvironment(Environment):
+    """Delegates ``TorchTask``s to the ranks of a mesh
+    (``runtime.sharding.Mesh``): an exploration's contexts become lanes
+    sharded over the data axes, one grid job a lane (the reference's
+    ``MeshEnvironment``).
+
+    ``mesh=None`` builds the production mesh
+    (``launch.mesh.make_production_mesh``: 16 x 16 ranks, 2 x 16 x 16 with
+    ``multi_pod``) on ``device``; it raises in a process group of another
+    size. ``jit`` installs the mesh (``runtime.sharding.use_mesh``) around
+    the call.
+
+    ``map_explore`` of a ``TorchTask`` stacks the contexts' values into
+    lanes, as the reference does; ragged contexts (other keys, values that
+    do not stack) and other tasks go to the base class. The lane axis
+    resolves by the ``"island"`` rule over the mesh (``logical_to_spec``).
+    Sharded lanes: each rank runs its contiguous block of the contexts on
+    its device, one context at a time, then the outputs are all-gathered,
+    so every rank returns every context's outputs, in order; tensors come
+    back on this rank's device. Replicated lanes (a one-rank mesh, or a
+    lane count that does not divide over the data axes): every rank runs
+    every context. ``last_lanes`` is the range of contexts this rank ran.
+
+    Not vmapped: the reference runs the lanes as one ``jax.vmap``ped
+    program. A ``TorchTask`` draws from a ``torch.Generator`` built inside
+    its function, which ``torch.func.vmap`` cannot batch, so a block runs
+    context by context.
+    """
+
+    def __init__(self, mesh=None, *, multi_pod: bool = False,
+                 device="cuda", **kw):
+        super().__init__(**kw)
+        if mesh is None:
+            from repro_torch.launch.mesh import make_production_mesh
+            mesh = make_production_mesh(multi_pod=multi_pod, device=device)
+        self._mesh = mesh
+        self.name = "multipod" if multi_pod else "pod"
+        self.last_lanes: Optional[range] = None
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    def jit(self, fn, **kw):
+        from repro_torch.runtime.sharding import use_mesh
+        mesh = self._mesh
+
+        def wrapped(*args, **kwargs):
+            with use_mesh(mesh):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+    def map_explore(self, task: Task, contexts: Sequence[Context]
+                    ) -> List[Context]:
+        from repro_torch.runtime.sharding import logical_to_spec, use_mesh
+        if task.kind != "torch" or not contexts:
+            return super().map_explore(task, contexts)
+        names = sorted(contexts[0].keys())
+        if any(sorted(c.keys()) != names for c in contexts):
+            return super().map_explore(task, contexts)   # ragged -> host
+        try:
+            batched = {k: torch.stack([torch.as_tensor(c[k])
+                                       for c in contexts]) for k in names}
+        except (TypeError, ValueError, RuntimeError):
+            return super().map_explore(task, contexts)
+        n, mesh = len(contexts), self._mesh
+        shape = next(iter(batched.values())).shape if batched else (n,)
+        with use_mesh(mesh):
+            lane = logical_to_spec(("island",) + (None,) * (len(shape) - 1),
+                                   shape, mesh)[0]
+        if lane is None:
+            start, stop = 0, n
+        else:
+            axes = (lane,) if isinstance(lane, str) else lane
+            block = n // math.prod(mesh.shape[a] for a in axes)
+            start = _lane_shard(mesh, axes) * block
+            stop = start + block
+        with _pin(mesh.device):
+            mine = [task.run(c) for c in contexts[start:stop]]
+        self.last_lanes = range(start, stop)
+        out = mine if lane is None else _gather_lanes(mesh, mine, start, n)
+        with self._lock:
+            self.stats.submitted += n
+            self.stats.completed += n
+        return out
+
+    def __repr__(self):
+        return f"MeshEnvironment(mesh={self._mesh.shape})"
+
+
+def _lane_shard(mesh, axes) -> int:
+    """This rank's index along the mesh axes ``axes`` (mesh order, major
+    first): rank r sits at flat position r of the row-major mesh."""
+    coord, r = {}, mesh.rank
+    for name, size in reversed(mesh.axes):
+        coord[name] = r % size
+        r //= size
+    shard = 0
+    for a in axes:
+        shard = shard * mesh.shape[a] + coord[a]
+    return shard
+
+
+class _Sent(NamedTuple):
+    """A tensor output on its way to the other ranks: a host copy (its
+    bits unchanged) and whether it was off the CPU."""
+    tensor: torch.Tensor
+    on_device: bool
+
+
+def _send(v):
+    if isinstance(v, torch.Tensor):
+        return _Sent(v.cpu(), v.device.type != "cpu")
+    return v
+
+
+def _receive(v, device):
+    if not isinstance(v, _Sent):
+        return v
+    return v.tensor.to(device) if v.on_device else v.tensor
+
+
+def _gather_lanes(mesh, mine: List[Context], start: int, n: int
+                  ) -> List[Context]:
+    """Every rank's block of outputs, in lane order, on every rank: one
+    ``all_gather_object`` over the mesh's ranks. Tensors travel as host
+    copies and land on this rank's device; ranks that hold the same block
+    (replicated over the mesh's other axes) send equal blocks, and the
+    first is kept."""
+    import torch.distributed as dist
+    sent = [{k: _send(v) for k, v in c.items()} for c in mine]
+    got: List[Any] = [None] * dist.get_world_size(mesh.group)
+    dist.all_gather_object(got, (start, sent), group=mesh.group)
+    out: List[Optional[Context]] = [None] * n
+    for s, block in got:
+        for i, c in enumerate(block):
+            if out[s + i] is None:
+                out[s + i] = Context({k: _receive(v, mesh.device)
+                                      for k, v in c.items()})
+    out[start:start + len(mine)] = mine
+    return out
+
+
+def EGIEnvironment(*args, **kw):
+    """The paper's ``EGIEnvironment("biomed", ...)``: on cards the closest
+    analogue is the two-pod mesh. The grid's own arguments (the VO,
+    ``openMOLEMemory``, ``wallTime``) are dropped, so the paper's listings
+    port line for line."""
+    kw.pop("vo", None)
+    kw.pop("openMOLEMemory", None)
+    kw.pop("wallTime", None)
+    return MeshEnvironment(multi_pod=True, **kw)

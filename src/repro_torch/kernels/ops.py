@@ -2,7 +2,10 @@
 
 A tensor on the CPU goes to the plain PyTorch version in ``ref``; any other
 tensor goes to the kernel wrapper, which launches the CUDA kernel or raises.
-There is no fall-back from a CUDA tensor to the plain code.
+There is no fall-back from a CUDA tensor to the plain code. B1 and B2 go
+through their ``torch.library`` operators (``library``), whose
+implementation the dispatcher picks by device type; the others call their
+wrapper.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from repro_torch.kernels import dominance as _dominance
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import flash_attention_bwd as _flash_bwd
 from repro_torch.kernels import gp as _gp
-from repro_torch.kernels import ref
+from repro_torch.kernels import library, ref
 
 KERNELS = {
     "diffuse_evaporate": _diffusion.diffuse_evaporate,
@@ -115,9 +118,7 @@ def diffuse_evaporate(chem, rate, evap):
     """chem (N, W, W) f32; rate/evap (N,) fractions in [0, 1]."""
     rate = rate.to(torch.float32).contiguous()
     evap = evap.to(torch.float32).contiguous()
-    if _on_cpu(chem):
-        return ref.diffuse_evaporate_ref(chem, rate, evap)
-    return _diffusion.diffuse_evaporate(chem.contiguous(), rate, evap)
+    return library.diffuse_evaporate(chem.contiguous(), rate, evap)
 
 
 # --------------------------------------------------------------------------
@@ -159,9 +160,7 @@ def dominance_pass(rows, cols=None, groups=None, groups_cols=None):
     if cols is not None:
         cols = cols.to(torch.float32).contiguous()
     groups, groups_cols = _groups(groups), _groups(groups_cols)
-    if _on_cpu(rows):
-        return ref.dominance_pass_ref(rows, cols, groups, groups_cols)
-    return _dominance.dominance_pass(rows, cols, groups, groups_cols)
+    return library.dominance_pass(rows, cols, groups, groups_cols)
 
 
 # --------------------------------------------------------------------------

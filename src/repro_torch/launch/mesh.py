@@ -11,7 +11,10 @@ and no process group.
 A mesh's axes are ``("data",)`` or ``("pod", "data")`` over the ranks of the
 default process group; rank r runs on ``cuda:{local rank % cards}`` (on the
 CPU: ``cpu``). Without a process group the mesh has one rank and the run is
-the single-device run.
+the single-device run. The production meshes (``make_production_mesh``)
+add a ``"model"`` axis: 16 x 16 ranks, or 2 x 16 x 16 over two pods; a
+one-process check of their layouts runs them on the ``"fake"`` backend
+(``torch.testing._internal.distributed.fake_pg.FakeStore``).
 """
 from __future__ import annotations
 
@@ -88,6 +91,15 @@ def _mesh(shape, names, device) -> Mesh:
     return Mesh(tuple(zip(names, shape)), dev, dm)
 
 
+def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
+    """``("data", "model")`` over 16 x 16 ranks, or ``("pod", "data",
+    "model")`` over 2 x 16 x 16 with ``multi_pod``; raises, with the hint
+    of how to start them, in a process group of another size."""
+    if multi_pod:
+        return _mesh((2, 16, 16), ("pod", "data", "model"), device)
+    return _mesh((16, 16), ("data", "model"), device)
+
+
 def make_host_mesh(device="cuda") -> Mesh:
     """Every rank of the process group (one without one) as a 1-D
     ``"data"`` mesh."""
@@ -108,3 +120,14 @@ def make_island_mesh(pod: int = 1, data: int = 0, device="cuda") -> Mesh:
     if pod > 1:
         return _mesh((pod, data), ("pod", "data"), device)
     return _mesh((data,), ("data",), device)
+
+
+# NVIDIA H100 80GB HBM3 (SXM) at a 700 W power limit, as nvidia-smi prints
+# it ("NVIDIA H100 80GB HBM3, 700.00 W"): the roofline denominators of one
+# card. A card set below 700 W runs slower under load.
+PEAK_FLOPS_BF16 = 989e12        # dense tensor-core FLOP/s (data sheet)
+HBM_BW = 3.35e12                # bytes/s of device memory (data sheet)
+NVLINK_BW = 900e9               # bytes/s to the other cards of the host,
+                                # both directions together (data sheet)
+HBM_BYTES = 85_017_493_504      # torch.cuda.get_device_properties(0)
+                                # .total_memory on such a card

@@ -77,6 +77,12 @@ def init_opt_state(params) -> OptState:
     )
 
 
+def opt_state_axes(params_axes) -> OptState:
+    """Logical axes tree for the optimizer state (mirrors params)."""
+    return OptState(step=(), mu=params_axes, nu=params_axes,
+                    master=params_axes)
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum()
                           for x in tree_leaves(tree)))

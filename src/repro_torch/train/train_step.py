@@ -21,8 +21,13 @@ generator on the device seeded with it (the reference hands every
 microbatch the same ``step_rng``). The models draw from it only for the
 MoE's router jitter, which every config leaves off.
 
-The reference's ``param_shardings`` and the logical axes pin layouts over a
-device mesh; on one card they are no-ops and are left out.
+``train_state_axes`` is the state's logical-axes tree, which
+``runtime.sharding.tree_shardings`` maps onto placements over a mesh (the
+reference's ``init_train_state`` returns it beside the state).
+``make_train_step(..., param_shardings=)`` takes the params' placements: on
+``DTensor`` params each microbatch's gradients are redistributed onto
+them, as the reference pins its accumulator; on plain tensors it does
+nothing.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.runtime.device import make_generator
 from repro_torch.train import compression
 from repro_torch.train.optimizer import (OptimizerConfig, OptState,
-                                         adamw_update, init_opt_state)
+                                         adamw_update, init_opt_state,
+                                         opt_state_axes)
 
 
 class TrainState(NamedTuple):
@@ -75,6 +81,16 @@ def abstract_train_state(model, use_compression=False) -> TrainState:
     )
 
 
+def train_state_axes(model, use_compression=False) -> TrainState:
+    """The logical axes of ``init_train_state``'s tree (mirrors the state:
+    the params' axes for params, moments, masters and error buffers; ()
+    for the step and the generator state), from the model's abstract
+    init."""
+    _, axes = model.abstract_init()
+    return TrainState(params=axes, opt=opt_state_axes(axes), rng=(),
+                      error=axes if use_compression else None)
+
+
 def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
     def sp(x):
         b = x.shape[0]
@@ -94,14 +110,28 @@ def _draw_step_seed(rng: torch.Tensor):
     return gen.get_state(), seed
 
 
+def _placed(grads, placements):
+    """Each ``DTensor`` gradient redistributed onto its param's placements
+    (None: left as it is); plain tensors unchanged."""
+    from torch.distributed.tensor import DTensor
+    return [g.redistribute(g.device_mesh, pl)
+            if pl is not None and isinstance(g, DTensor) else g
+            for g, pl in zip(grads, placements)]
+
+
 def make_train_step(model, oc: OptimizerConfig, microbatches: int = 1,
-                    use_compression: bool = False) -> Callable:
+                    use_compression: bool = False,
+                    param_shardings: Any = None) -> Callable:
+    """``param_shardings``: the params' placements tree
+    (``runtime.sharding.tree_shardings``), or None."""
+    placements = (None if param_shardings is None
+                  else tree_leaves(param_shardings))
+
     def train_step(state: TrainState, batch):
         rng, step_seed = _draw_step_seed(state.rng)
         mb = _split_microbatches(batch, microbatches)
         leaves = tree_leaves(state.params)
-        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in leaves]
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         device = leaves[0].device
         lsum = torch.zeros((), dtype=torch.float32, device=device)
         msum: Optional[dict] = None
@@ -112,6 +142,8 @@ def make_train_step(model, oc: OptimizerConfig, microbatches: int = 1,
             loss, metrics = model.loss(params, micro,
                                        make_generator(step_seed, device))
             grads = torch.autograd.grad(loss, live)
+            if placements is not None:
+                grads = _placed(grads, placements)
             torch._foreach_add_(gsum, [g.float() for g in grads])
             lsum = lsum + loss.detach()
             metrics = {k: v.detach() for k, v in metrics.items()}

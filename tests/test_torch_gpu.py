@@ -1083,3 +1083,80 @@ def test_bandit_request_on_the_card_launches_gp_sqdist_only(cuda):
             if margin[t, r] <= 2e-4:
                 break
             assert int(argmax[t, r]) == int(toks[r, t]), (r, t)
+
+
+# ---------------------------------------------------------------------------
+# B1 and B2 as torch.library custom ops; packaged tasks on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 320, 640])
+def test_diffusion_custom_op_is_the_launcher_bitwise(cuda, n):
+    from repro_torch.kernels import library
+    g = _gen(cuda, n)
+    chem = torch.rand((n, 72, 72), generator=g, device=cuda) * 50
+    rate = torch.rand((n,), generator=g, device=cuda)
+    evap = torch.rand((n,), generator=g, device=cuda)
+    ops.reset_kernel_launch_counts()
+    got = library.diffuse_evaporate(chem, rate, evap)
+    routed = ops.diffuse_evaporate(chem, rate, evap)
+    assert ops.kernel_launch_counts()["diffuse_evaporate"] == 2
+    want = diffusion.diffuse_evaporate(chem, rate, evap)
+    assert torch.equal(got, want) and torch.equal(routed, want)
+
+
+@pytest.mark.parametrize("ni,nj,grouped", [(256, None, True), (64, None, True),
+                                           (2048, None, False),
+                                           (160, 320, False)])
+def test_dominance_custom_op_is_the_launcher(cuda, ni, nj, grouped):
+    from repro_torch.kernels import library
+    g = _gen(cuda, ni)
+    rows = torch.randint(0, 1001, (ni, 3), generator=g,
+                         device=cuda).to(torch.float32)
+    cols = None if nj is None else torch.randint(
+        0, 1001, (nj, 3), generator=g, device=cuda).to(torch.float32)
+    groups = (torch.arange(ni, device=cuda, dtype=torch.int32) % 8
+              if grouped else None)
+    ops.reset_kernel_launch_counts()
+    got = library.dominance_pass(rows, cols, groups, None)
+    routed = ops.dominance_pass(rows, cols, groups)
+    assert ops.kernel_launch_counts()["dominance_pass"] == 2
+    want = dominance.dominance_pass(rows, cols, groups, None)
+    for a, b, c in zip(got, routed, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+
+def test_packaged_tasks_rehydrate_on_the_card(cuda, tmp_path):
+    import dataclasses
+
+    from repro_torch.ants import model, simulate_state
+    from repro_torch.configs.ants_netlogo import CONFIG
+    from repro_torch.core import packaging
+    cfg = dataclasses.replace(CONFIG, max_ticks=30)
+
+    def ants_apply(d, e, noise):
+        state = simulate_state(cfg, d, e, noise=noise)
+        return state.ticks_empty.to(torch.float32), state.chem
+
+    g = _gen(cuda, 26)
+    n = 640
+    ants_args = (torch.rand((n,), generator=g, device=cuda) * 99,
+                 torch.rand((n,), generator=g, device=cuda) * 99,
+                 model.draw_gumbel(g, (cfg.max_ticks, n, cfg.population, 8),
+                                   cuda))
+    objectives = torch.randint(0, 1001, (2048, 3), generator=g,
+                               device=cuda).to(torch.float32)
+    for name, fn, args, kernel, expect in (
+            ("ants", ants_apply, ants_args, "diffuse_evaporate",
+             cfg.max_ticks),
+            ("dominance", lambda x: ops.dominance_pass(x), (objectives,),
+             "dominance_pass", 1)):
+        path = packaging.package(fn, args, str(tmp_path / name), name=name)
+        assert packaging.manifest(path)["device"] == "cuda"
+        run = packaging.load(path)
+        ops.reset_kernel_launch_counts()
+        got = run(*args)
+        counts = ops.kernel_launch_counts()
+        assert counts[kernel] == expect and sum(counts.values()) == expect
+        want = fn(*args)
+        for a, b in zip(got, want):
+            assert a.device.type == "cuda" and torch.equal(a, b)
+    assert want[1].shape == (2048, 64)

@@ -5,6 +5,7 @@ in a process of its own (each builds its own kernels), so that a change is
 read against its parent on the same card within one call.
 
     python3 tools/compare_trees.py PARENT_DIR CHANGED_DIR [--chunk]
+        [--calibrate]
 
 Each run prints one JSON line: B1 at (640, 72, 72) and (20480, 72, 72),
 B7 forward at L 512, B (512, 50,176) and backward at B (512, 2048), B2 at
@@ -14,8 +15,11 @@ rows (3 objectives, integers in [0, 1000]), each checked against
 its plain version (B1 bitwise; B7 within 1e-4 of max |X|; B2, B3 equal)
 and timed with CUDA events (median, min and max of 20 samples of 10
 back-to-back calls each, queued behind a spinning card); with --chunk also
-one 20480-lane init chunk at CONFIG (lane-ticks per second). The card's
-name and power limit come last.
+one 20480-lane init chunk at CONFIG (lane-ticks per second); with
+--calibrate also ``launch.explore.calibrate`` at CONFIG with the
+reference's defaults cut to 2 epochs (chip_smoke.py's phase calibrate:
+9000 B1 and 23 B2 launches through ``kernels.ops``), its wall on the host
+clock. The card's name and power limit come last.
 """
 from __future__ import annotations
 
@@ -50,7 +54,11 @@ def events_ms(torch, fn, reps: int = 20, inner: int = 10) -> dict:
             "max": max(samples)}
 
 
-def worker(chunk: bool) -> dict:
+CAL_FLAGS = dict(n_islands=8, mu=16, lam=16, steps_per_epoch=4, epochs=2,
+                 replicates=5, archive_size=256, merge_top_k=8)
+
+
+def worker(chunk: bool, calibrate: bool = False) -> dict:
     """Measure the kernels (and the chunk) of the tree on sys.path."""
     import time
 
@@ -119,19 +127,31 @@ def worker(chunk: bool) -> dict:
         wall = time.perf_counter() - t0
         out["chunk_s"] = wall
         out["chunk_lane_ticks_per_s"] = 4096 * 5 * CONFIG.max_ticks / wall
+    if calibrate:
+        import tempfile
+
+        from repro_torch.launch import explore
+        with tempfile.TemporaryDirectory() as run_dir:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            explore.calibrate(reduced=False, out_dir=run_dir, device="cuda",
+                              printer=lambda s: None, **CAL_FLAGS)
+            torch.cuda.synchronize()
+            out["calibrate_s"] = time.perf_counter() - t0
     return out
 
 
 def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
         sys.path.insert(0, str(Path(sys.argv[2]) / "src"))
-        print(json.dumps(worker("--chunk" in sys.argv)), flush=True)
+        print(json.dumps(worker("--chunk" in sys.argv,
+                                "--calibrate" in sys.argv)), flush=True)
         return 0
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    extra = ["--chunk"] if "--chunk" in sys.argv else []
+    extra = [f for f in ("--chunk", "--calibrate") if f in sys.argv]
     trees = {"A": Path(args[0]).resolve(), "B": Path(args[1]).resolve()}
     for label in ("A", "B", "B", "A"):
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

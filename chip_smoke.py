@@ -123,7 +123,9 @@ Phases (any failure exits non-zero):
               and a smollm-135m GQA layer's gqa_apply(allow_flash=True), at
               the model's full width (H 9, KH 3, D 64), (4, 4096) in bf16
               and f32 and (1, 32768) in bf16; launch counts read around the
-              path; each kernel against its plain version (the 32k forward
+              path, the f32 ones apart (one launch of each wrapper, its own
+              rows in the kernels line); each kernel against its plain
+              version (the 32k forward
               against SDPA), the layer against its _sdpa branch; times
               beside the bound, each kernel in turns with SDPA (median and
               min/max), and the layer's time split into projections + RoPE,
@@ -319,34 +321,39 @@ HOLD_CYCLES = 2_000_000     # ~1 ms of a spinning card: the host queues a
 
 def flash_build_report(build) -> dict:
     """Every flash kernel of the built library: registers and spills
-    (ptxas -v), the dynamic shared memory of the bf16 kernels, and the
+    (ptxas -v), the dynamic shared memory it is launched with, and the
     count of tensor-core instructions (HGMMA, HMMA) in its SASS. Fails
     unless every bf16 kernel has some."""
     import ctypes
     import re
     lib = build.load("flash")
-    lib.flash_bf16_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    bf16_kernels = {"flash_fwd_wgmma_kernel": 0, "flash_dq_wgmma_kernel": 1,
-                    "flash_dkv_wgmma_kernel": 2}
+    for entry in (lib.flash_bf16_smem_bytes, lib.flash_f32_smem_bytes):
+        entry.argtypes = [ctypes.c_int, ctypes.c_int]
+    # name -> (C entry of its shared memory, its index there)
+    kernels = {"flash_fwd_wgmma_kernel": (lib.flash_bf16_smem_bytes, 0),
+               "flash_dq_wgmma_kernel": (lib.flash_bf16_smem_bytes, 1),
+               "flash_dkv_wgmma_kernel": (lib.flash_bf16_smem_bytes, 2),
+               "flash_fwd_kernel": (lib.flash_f32_smem_bytes, 0),
+               "flash_dq_kernel": (lib.flash_f32_smem_bytes, 1),
+               "flash_dkv_kernel": (lib.flash_f32_smem_bytes, 2)}
     resources = build.kernel_resources(build.build_log("flash"))
     rows = {}
     for mangled, counts in build.sass_counts(build.sass("flash"),
                                              ("HGMMA", "HMMA")).items():
-        # the name after the anonymous namespace's, and the head dim D
-        m = re.search(r"(flash_[a-z]+(?:_wgmma)?_kernel)ILi(\d+)E", mangled)
-        require(m is not None, f"unknown kernel {mangled} in flash.cu")
-        kernel, d = m.group(1), int(m.group(2))
-        row = {**resources.get(mangled, {}), **counts}
-        if kernel in bf16_kernels:
-            row["smem_bytes"] = lib.flash_bf16_smem_bytes(
-                bf16_kernels[kernel], d)
+        # the name as mangled (its length, then it) and the head dim D
+        names = [k for k in kernels if f"{len(k)}{k}ILi" in mangled]
+        m = re.search(r"ILi(\d+)E", mangled)
+        require(len(names) == 1 and m is not None,
+                f"unknown kernel {mangled} in flash.cu")
+        kernel, d = names[0], int(m.group(1))
+        smem, which = kernels[kernel]
+        rows[f"{kernel}<{d}>"] = {**resources.get(mangled, {}), **counts,
+                                  "smem_bytes": smem(which, d)}
+        if "wgmma" in kernel:
             require(counts["HGMMA"] + counts["HMMA"] > 0,
                     f"bf16 kernel {kernel}<{d}> runs no tensor-core "
                     f"instruction")
-        rows[f"{kernel}<{d}>"] = row
-    want = {f"{k}<{d}>" for k in (*bf16_kernels, "flash_fwd_kernel",
-                                  "flash_dq_kernel", "flash_dkv_kernel")
-            for d in (16, 32, 64, 128)}
+    want = {f"{k}<{d}>" for k in kernels for d in (16, 32, 64, 128)}
     require(set(rows) == want, f"flash.cu kernels: expected {sorted(want)}, "
             f"got {sorted(rows)}")
     return rows
@@ -652,8 +659,10 @@ def flash_phase(torch, dev, gen) -> tuple:
     attention (H 9, KH 3, D 64), in bfloat16 (the config's dtype) and f32.
 
     The path, with the launch counts set to 0 just before it and read just
-    after: ``ops.flash_attention_gqa`` at train_4k's sequence (B 4, S 4096,
-    causal) in both types and at prefill_32k's (B 1, S 32768, bf16);
+    after (the f32 calls' launches also counted apart, as
+    ``<wrapper>_f32``): ``ops.flash_attention_gqa`` at train_4k's sequence
+    (B 4, S 4096, causal) in both types and at prefill_32k's (B 1, S 32768,
+    bf16);
     ``ops.flash_attention_or_ref`` once; a smollm-135m CONFIG GQA layer
     (``gqa_apply(allow_flash=True)`` through ``GQAttention``, weights from
     ``gqa_init``) on x (4, 4096, 576) bf16, one ``flash_attention`` launch;
@@ -716,13 +725,32 @@ def flash_phase(torch, dev, gen) -> tuple:
     mask = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
 
     # -- the path -----------------------------------------------------------
+    f32_launches = {}
+
+    def run(dt, fn):
+        """fn(), its f32 launches counted apart as "<wrapper>_f32"."""
+        before = ops.kernel_launch_counts()
+        result = fn()
+        for name, n in ops.kernel_launch_counts().items():
+            if dt == f32 and n > before[name]:
+                key = f"{name}_f32"
+                f32_launches[key] = f32_launches.get(key, 0) + n - before[name]
+        return result
+
+    def diff(q, k, v, w):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention_gqa_diff(*leaves, causal=True)
+        (o.float() * w).sum().backward()
+        return (o.detach(), *(t.grad for t in leaves))
+
     ops.reset_kernel_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = {}
     with torch.no_grad():
         for dt, (q, k, v, _) in inputs.items():
-            out["b8", dt] = ops.flash_attention_gqa(q, k, v, causal=True)
+            out["b8", dt] = run(dt, lambda: ops.flash_attention_gqa(
+                q, k, v, causal=True))
         out["long"] = ops.flash_attention_gqa(*long_in, causal=True)
         q, k, v, _ = inputs[bf16]
         out["or_ref"] = ops.flash_attention_or_ref(
@@ -731,10 +759,7 @@ def flash_phase(torch, dev, gen) -> tuple:
         out["layer"] = layer(x, positions, mask, allow_flash=True)
         layer_launches = ops.kernel_launch_counts()["flash_attention"] - before
     for dt, (q, k, v, w) in inputs.items():
-        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        o = ops.flash_attention_gqa_diff(*leaves, causal=True)
-        (o.float() * w).sum().backward()
-        out["diff", dt] = (o.detach(), *(t.grad for t in leaves))
+        out["diff", dt] = run(dt, lambda: diff(q, k, v, w))
     torch.cuda.synchronize()
     path_wall = time.perf_counter() - t0
     launches = ops.kernel_launch_counts()
@@ -745,6 +770,9 @@ def flash_phase(torch, dev, gen) -> tuple:
             and launches["flash_attention_dq"] == 2
             and launches["flash_attention_dkv"] == 2,
             f"flash path launches {launches}")
+    require(f32_launches == {f"{name}_f32": 1 for name in (
+        "flash_attention", "flash_attention_fwd", "flash_attention_dq",
+        "flash_attention_dkv")}, f"flash path f32 launches {f32_launches}")
 
     # -- each result against its plain version on the card -----------------
     tol = {f32: 2e-5, bf16: 2e-2}
@@ -887,6 +915,7 @@ def flash_phase(torch, dev, gen) -> tuple:
                           BF16_TENSOR_OPS_PER_S)
     emit({"phase": "flash", "config": LM.name, "heads": h, "kv_heads": kh,
           "head_dim": d, "path_wall_s": path_wall, "launches": launches,
+          "launches_f32": f32_launches,
           "layer_flash_launches": layer_launches, "max_abs_err": errs,
           "max_abs_want": scales,
           "tolerance": {"out_f32": tol[f32], "out_bf16": tol[bf16],
@@ -906,7 +935,7 @@ def flash_phase(torch, dev, gen) -> tuple:
           "backward_bound_ms_bf16": bound_ms(
               0, 2.5 * 2 * b * h * s * s * d, BF16_TENSOR_OPS_PER_S)[0],
           "seconds": time.monotonic() - t_phase})
-    return rows, launches
+    return rows, {**launches, **f32_launches}
 
 
 def max_in_flight(tasks) -> int:
@@ -4147,6 +4176,16 @@ def main() -> int:
          "src/repro/kernels/flash_attention_bwd.py:221", "flash"),
         ("flash_attention_dkv", ("flash_attention_dkv", "bf16"), "flash.cu",
          "src/repro/kernels/flash_attention_bwd.py:245", "flash"),
+        # and in f32, on the CUDA cores: their own kernels of flash.cu
+        ("flash_attention_f32", ("flash_attention", "f32"), "flash.cu",
+         "src/repro/kernels/flash_attention.py:95", "flash"),
+        ("flash_attention_fwd_f32", ("flash_attention_fwd", "f32"),
+         "flash.cu", "src/repro/kernels/flash_attention_bwd.py:95", "flash"),
+        ("flash_attention_dq_f32", ("flash_attention_dq", "f32"), "flash.cu",
+         "src/repro/kernels/flash_attention_bwd.py:221", "flash"),
+        ("flash_attention_dkv_f32", ("flash_attention_dkv", "f32"),
+         "flash.cu", "src/repro/kernels/flash_attention_bwd.py:245",
+         "flash"),
     )
     kernels = []
     for name, key, source, replaces, path in rows:
@@ -4157,7 +4196,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": by_path[path][name],
             "path": path,
-            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in by_path.items()},
             "shape": r["shape"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -53,26 +53,49 @@
 // tile and a masked score (-inf) contributes exp(-inf) = 0: no -1e30
 // sentinel is needed.
 //
-// f32, on the CUDA cores (flash_fwd_kernel, flash_dq_kernel,
-// flash_dkv_kernel): the f32 FMAs hold the 2e-5 gate against the plain
-// version, which TF32 tensor cores would not. One block of 256 threads
-// owns one 64-row tile and loops over the other axis; thread (tx, ty) of
-// 16 x 16 owns rows ty + 16 a (a < 4) and columns tx + 16 c of every
-// 64 x 64 score tile and of the 64 x D accumulators, so a row's max and sum
-// are shuffles among the 16 lanes of one half-warp. Tiles sit in shared
-// memory in f32 with row stride D + 1 (no bank conflicts when 16 lanes
-// read one column of 16 rows); rows past S load as zeros, key columns past
-// S are masked and rows past S are not written.
+// f32, on the CUDA cores: the f32 FMAs hold the 2e-5 gate against the
+// plain version, which TF32 tensor cores would not. The bound is the f32
+// FMA rate (67 TFLOP/s).
+//  * flash_fwd_kernel and flash_dkv_kernel: register tiles fed by 128-bit
+//    shared loads. Tiles sit in shared memory row-major with row stride
+//    D + 4 (q, k, v, dO, as they are in device memory: no transpose) and
+//    score tiles (P, P^T, dS^T) with stride 72. In a group of 128 threads,
+//    thread (rg, cg) of 16 x 8 owns rows rg + 16 i (i < TM) and score
+//    columns cg + 8 j (j < 8), and head-dim columns in groups of 4 (2 at D
+//    16); both products read rows along their inner dimension, 4 floats a
+//    load: per 4 steps of it, S = Q K^T issues TM + 8 loads for 32 TM FMAs
+//    and O += P V TM + D / 8 for TM D / 2. At TM 8 (D 64) that is 16 FMAs
+//    a load: one byte of shared memory a lane's FMA, which at the f32 peak
+//    is the 128 bytes a clock an SM's shared memory delivers, so the two
+//    pipes share the time (the kernels run near 58 % of the f32 peak).
+//    A row's max is a shuffle among the 8 lanes of an octet; the octet that
+//    writes a row of a score tile is the one that reads it (a __syncwarp).
+//    Tiles arrive by 16-byte cp.async while the tile before them is
+//    computed; rows past S are stored as zeros and not written back.
+//    Forward: two groups own 128 q rows each (one group of 64 rows at D
+//    128), a two-stage ring of 64-key k/v tiles, one block barrier a tile;
+//    a group skips the tiles past its last causal row. dK/dV: 128 keys (32
+//    at D 128) and a two-stage ring of 64-row q/dO tiles; group 0 computes
+//    S^T, P^T and dV += P^T dO, group 1 dP^T, dS^T and dK += dS^T Q, so a
+//    thread holds one TM x D / 8 accumulator. Both are one 256-thread
+//    block an SM (212,992 bytes of shared memory at D 64).
+//  * flash_dq_kernel: one block of 256 threads owns a 64-row tile; thread
+//    (tx, ty) of 16 x 16 owns rows ty + 16 a (a < 4) and columns tx + 16 c
+//    of every 64 x 64 score tile and of the 64 x D accumulators; tiles in
+//    f32 with row stride D + 1, copied element by element.
 //
 // More than 48 KB of dynamic shared memory is opted into per kernel with
 // cudaFuncSetAttribute.
 //
-// Measured by chip_smoke.py (phase flash: (4, 4096, 9/3, 64), causal,
-// medians of 20 CUDA-event samples) on an NVIDIA H100 80GB HBM3 at a
-// 700.00 W power limit: bf16 forward 0.247 ms (313 TFLOP/s, 3.2x its
-// bound; SDPA 0.234 ms), dQ 0.607 ms and dK/dV 0.586 ms (191 and 264
-// TFLOP/s; SDPA's whole backward 0.69 ms); f32 forward 3.82 ms, dQ 5.49
-// ms, dK/dV 7.24 ms (SDPA 12.6 ms forward and backward).
+// Measured at (4, 4096, 9/3, 64), causal, on an NVIDIA H100 80GB HBM3 at
+// a 700.00 W power limit. chip_smoke.py (phase flash, medians of 20
+// CUDA-event samples in turns with SDPA): bf16 forward 0.247 ms (313
+// TFLOP/s, 3.2x its bound; SDPA 0.234 ms), dQ 0.607 ms and dK/dV 0.586 ms
+// (191 and 264 TFLOP/s; SDPA's whole backward 0.69 ms); SDPA in f32 12.5
+// ms forward, 12.6 ms backward. tools/compare_trees.py --flash (medians
+// of 20 samples, the kernels before this design and after in turns): f32
+// forward 3.74 -> 2.01 ms (57 % of its 1.15 ms bound), dK/dV 7.13 -> 4.02
+// ms (57 % of 2.31 ms), dQ 5.39 ms.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +103,7 @@
 
 #include <math.h>
 
+#include "async_copy.cuh"
 #include "flash_mma.cuh"
 
 namespace {
@@ -142,103 +166,6 @@ __device__ __forceinline__ void product_px(float (&acc)[4][D / 16],
       for (int c = 0; c < D / 16; ++c) {
         acc[i][c] = fmaf(pv[i], xv[c], acc[i][c]);
       }
-    }
-  }
-}
-
-// Max and sum over the 16 lanes of a half-warp (the 16 threads that share
-// a row); every lane gets the same value.
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  }
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ lse, int s, int h, int group,
-                 int causal, float scale) {
-  constexpr int NC = D / 16;
-  extern __shared__ float smem[];
-  float* s_q = smem;
-  float* s_k = s_q + kTile * (D + 1);
-  float* s_v = s_k + kTile * (D + 1);
-  float* s_p = s_v + kTile * (D + 1);
-  const int qt = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
-  const int hi = blockIdx.y, bi = blockIdx.z;
-  const int kh = h / group;
-  const size_t q_base = (static_cast<size_t>(bi) * h + hi) * s * D;
-  const size_t kv_base =
-      (static_cast<size_t>(bi) * kh + hi / group) * s * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = qt * kTile;
-  load_tile<D>(s_q, q + q_base, q0, s);
-
-  float acc[4][NC];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
-  const int nk = causal ? qt + 1 : (s + kTile - 1) / kTile;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();   // the last tile's reads of s_k, s_v, s_p are done
-    load_tile<D>(s_k, k + kv_base, k0, s);
-    load_tile<D>(s_v, v + kv_base, k0, s);
-    __syncthreads();
-    float sc[4][4] = {};
-    product_abt<D>(sc, s_q, s_k, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool keep = kpos < s && (!causal || kpos <= qpos);
-        sc[i][j] = keep ? sc[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);   // 0 at the first tile
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        s_p[(ty + 16 * i) * kPadP + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = alpha * l[i] + half_warp_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    product_px<D>(acc, s_p, s_v, tx, ty);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= s) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* o = out + q_base + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[tx + 16 * c] = acc[i][c] / denom;
-    if (lse != nullptr && tx == 0) {
-      lse[(static_cast<size_t>(bi) * h + hi) * s + row] = m[i] + logf(denom);
     }
   }
 }
@@ -313,84 +240,403 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ---------------------------------------------------------------------------
+// f32 forward and dK/dV: register tiles fed by 128-bit shared loads
+// ---------------------------------------------------------------------------
+constexpr int kF32Threads = 128;       // 16 row groups x 8 column groups
+constexpr int kF32Cols = 64;           // score columns of a tile
+constexpr int kPadS = kF32Cols + 8;    // row stride of a score tile
+
+// A thread's D / 8 head-dim columns: NG groups of VW adjacent ones,
+// VW cg + 8 VW g + e for column group cg.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct HeadCols {
+  static constexpr int VW = D >= 32 ? 4 : 2;
+  static constexpr int NG = D / 8 / VW;
+};
+
+// Forward: a block of GROUPS groups of kF32Threads owns 16 TM q rows a
+// group (ROWS in all) and walks 64-key tiles through a two-stage ring.
+template <int D>
+struct F32Fwd {
+  static constexpr int TM = D == 128 ? 4 : 8;
+  static constexpr int GROUPS = D == 128 ? 1 : 2;
+  static constexpr int ROWS = 16 * TM * GROUPS;
+  static constexpr int kThreads = kF32Threads * GROUPS;
+  // the q tile, two stages of k and v tiles (row stride D + 4) and P
+  static constexpr size_t kBytes =
+      sizeof(float) * ((ROWS + 4 * kF32Cols) * (D + 4) + ROWS * kPadS);
+};
+
+// dK/dV: a block of two groups of kF32Threads owns KEYS = 16 TM keys and
+// walks 64-row q/dO tiles through a two-stage ring.
+template <int D>
+struct F32Dkv {
+  static constexpr int TM = D == 128 ? 2 : 8;
+  static constexpr int KEYS = 16 * TM;
+  static constexpr int kThreads = 2 * kF32Threads;
+  // the k and v tiles, two stages of q and dO tiles, P^T and dS^T
+  static constexpr size_t kBytes =
+      sizeof(float) * ((2 * KEYS + 4 * kF32Cols) * (D + 4) + 2 * KEYS * kPadS);
+};
+
+template <int VW>
+__device__ __forceinline__ void load_vec(float (&x)[VW], const float* p) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x, x[1] = t.y;
+  }
+}
+
+__device__ __forceinline__ float part(const float4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+// Rows [row0, row0 + ROWS) of the (s, D) matrix at src into dst (row
+// stride D + 4) by 16-byte cp.async from the NT threads of the block, in
+// the caller's next commit group; rows at or past s are stored as zeros.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void copy_rows(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int s) {
+  constexpr int kChunks = D / 4;
+  static_assert(ROWS * kChunks % NT == 0, "whole passes");
+#pragma unroll
+  for (int n = 0; n < ROWS * kChunks / NT; ++n) {
+    const int e = threadIdx.x + n * NT;
+    const int r = e / kChunks, c = e % kChunks;
+    float* d = dst + r * (D + 4) + 4 * c;
+    if (row0 + r < s) {
+      async_copy::cp_async<16>(d, src + static_cast<size_t>(row0 + r) * D +
+                                      4 * c);
+    } else {
+      *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+}
+
+// acc[i][j] += sum_k a[rg + 16 i][k] b[cg + 8 j][k] over the head dim, a
+// and b (row stride D + 4) read 4 columns at a time: per 4 columns, TM + 8
+// 128-bit loads feed 32 TM FMAs. The loop over the columns is unrolled U
+// times.
+template <int D, int TM, int U>
+__device__ __forceinline__ void tile_abt(float (&acc)[TM][8], const float* a,
+                                         const float* b, int rg, int cg) {
+  a += rg * (D + 4);
+  b += cg * (D + 4);
+#pragma unroll(U)
+  for (int k = 0; k < D; k += 4) {
+    float4 av[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(a + 16 * i * (D + 4) + k);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(b + 8 * j * (D + 4) +
+                                                         k);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv.y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv.z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][g][e] += sum_r p[rg + 16 i][r] x[r][VW cg + 8 VW g + e] over the
+// 64 columns of the score tile p (row stride kPadS) and the rows of x (row
+// stride D + 4): per 4 rows, TM + 4 NG loads feed 4 TM D / 8 FMAs.
+template <int D, int TM>
+__device__ __forceinline__ void tile_px(
+    float (&acc)[TM][HeadCols<D>::NG][HeadCols<D>::VW], const float* p,
+    const float* x, int rg, int cg) {
+  constexpr int NG = HeadCols<D>::NG, VW = HeadCols<D>::VW;
+  p += rg * kPadS;
+  x += VW * cg;
+#pragma unroll 2
+  for (int r = 0; r < kF32Cols; r += 4) {
+    float4 pv[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      pv[i] = *reinterpret_cast<const float4*>(p + 16 * i * kPadS + r);
+    }
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        float xv[VW];
+        load_vec<VW>(xv, x + (r + rr) * (D + 4) + 8 * VW * g);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            acc[i][g][e] = fmaf(part(pv[i], rr), xv[e], acc[i][g][e]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Max over the 8 lanes of a column-group octet (the lanes that share rows).
+__device__ __forceinline__ float octet_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+__device__ __forceinline__ float octet_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// B8 and B9's forward: block (batch x q-head, q tile), the longest causal
+// rows first. The q tile is loaded once; k/v tile kt + 1 is copied while
+// tile kt is computed. A row of P is written and read by the 8 lanes of
+// one octet, so one block barrier a tile (for the k/v ring) suffices; a
+// group skips the key tiles past its last causal row.
+template <int D>
+__global__ void __launch_bounds__(F32Fwd<D>::kThreads, 1)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int s, int h, int group,
+                 int causal, float scale) {
+  using G = F32Fwd<D>;
+  constexpr int TM = G::TM, NG = HeadCols<D>::NG, VW = HeadCols<D>::VW;
+  constexpr int kTileFloats = kF32Cols * (D + 4);
+  extern __shared__ __align__(16) float tiles[];
+  float* s_q = tiles;
+  float* s_k = s_q + G::ROWS * (D + 4);   // stage st at s_k + st * tile
+  float* s_v = s_k + 2 * kTileFloats;     // the same
+  float* s_p = s_v + 2 * kTileFloats;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, hi = bh % h;
+  const int kvh = (bh / h) * (h / group) + hi / group;
+  const float* kb = k + static_cast<size_t>(kvh) * s * D;
+  const float* vb = v + static_cast<size_t>(kvh) * s * D;
+  const int q0 = qt * G::ROWS;
+  const int n_tiles = (s + kF32Cols - 1) / kF32Cols;
+  const int nk = causal ? min(n_tiles, (q0 + G::ROWS + kF32Cols - 1) / kF32Cols)
+                        : n_tiles;
+  // this thread: rows r0 + rg + 16 i of the group's, key columns cg + 8 j
+  const int t = threadIdx.x % kF32Threads;
+  const int rg = t / 8, cg = t % 8;
+  const int r0 = threadIdx.x / kF32Threads * 16 * TM;   // warp-uniform
+  const int last_row = q0 + r0 + 16 * TM - 1;           // the group's
+  const float scale_log2 = scale * kLog2e;
+
+  copy_rows<D, G::ROWS, G::kThreads>(s_q, q + static_cast<size_t>(bh) * s * D,
+                                     q0, s);
+  copy_rows<D, kF32Cols, G::kThreads>(s_k, kb, 0, s);
+  copy_rows<D, kF32Cols, G::kThreads>(s_v, vb, 0, s);
+  async_copy::cp_async_commit();
+  float o[TM][NG][VW] = {};
+  float m[TM], l[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) m[i] = -INFINITY, l[i] = 0.0f;
+  float* p_rows = s_p + r0 * kPadS;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kF32Cols, st = kt % 2;
+    async_copy::cp_async_wait<0>();
+    __syncthreads();   // k/v tile kt in; every thread is done with kt - 1
+    if (kt + 1 < nk) {
+      const int nx = (st ^ 1) * kTileFloats;
+      copy_rows<D, kF32Cols, G::kThreads>(s_k + nx, kb, k0 + kF32Cols, s);
+      copy_rows<D, kF32Cols, G::kThreads>(s_v + nx, vb, k0 + kF32Cols, s);
+    }
+    async_copy::cp_async_commit();
+    if (causal && k0 > last_row) continue;   // every key of the tile masked
+
+    float sc[TM][8] = {};
+    tile_abt<D, TM, 1>(sc, s_q + r0 * (D + 4), s_k + st * kTileFloats, rg,
+                       cg);
+    const bool edge =
+        (causal && k0 + kF32Cols - 1 > q0 + r0) || k0 + kF32Cols > s;
+    // online softmax in the log2 domain; l sums this thread's columns
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int qpos = q0 + r0 + rg + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kpos = k0 + cg + 8 * j;
+        float x = sc[i][j] * scale_log2;
+        if (edge && (kpos >= s || (causal && kpos > qpos))) x = -INFINITY;
+        sc[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[i], octet_max(mx));
+      const float alpha = exp2f(m[i] - m_new);   // 0 at the first tile
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = exp2f(sc[i][j] - m_new);
+        p_rows[(rg + 16 * i) * kPadS + cg + 8 * j] = p;
+        sum += p;
+      }
+      l[i] = alpha * l[i] + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+#pragma unroll
+        for (int e = 0; e < VW; ++e) o[i][g][e] *= alpha;
+      }
+    }
+    __syncwarp();   // the octet's rows of P in
+    tile_px<D, TM>(o, p_rows, s_v + st * kTileFloats, rg, cg);
+  }
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const float denom = fmaxf(octet_sum(l[i]), 1e-30f);
+    const float inv = 1.0f / denom;
+    const int row = q0 + r0 + rg + 16 * i;
+    if (row >= s) continue;
+    float* dst = out + (static_cast<size_t>(bh) * s + row) * D + VW * cg;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      float* at = dst + 8 * VW * g;
+      if constexpr (VW == 4) {
+        *reinterpret_cast<float4*>(at) =
+            make_float4(o[i][g][0] * inv, o[i][g][1] * inv, o[i][g][2] * inv,
+                        o[i][g][3] * inv);
+      } else {
+        *reinterpret_cast<float2*>(at) =
+            make_float2(o[i][g][0] * inv, o[i][g][1] * inv);
+      }
+    }
+    if (lse != nullptr && cg == 0) {
+      lse[static_cast<size_t>(bh) * s + row] = (m[i] + log2f(denom)) * kLn2;
+    }
+  }
+}
+
+// B9's per-q-head dK and dV: block (batch x q-head, key block), the first
+// keys (the most causal rows) first; k and v loaded once, q/dO tile t + 1
+// copied while tile t is computed. Group 0 computes S^T = K Q^T, P^T
+// (through shared memory) and dV += P^T dO; group 1 dP^T = V dO^T, dS^T
+// = P^T (dP^T - dsum) (through shared memory) and dK += dS^T Q, so that
+// each thread keeps one accumulator of TM x D / 8 and one score tile of
+// TM x 8. A row of P^T or dS^T is written and read by the 8 lanes of one
+// octet.
+template <int D>
+__global__ void __launch_bounds__(F32Dkv<D>::kThreads, 1)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ dsum, float* __restrict__ dk,
                  float* __restrict__ dv, int s, int h, int group, int causal,
                  float scale) {
-  constexpr int NC = D / 16;
-  extern __shared__ float smem[];
-  float* s_k = smem;
-  float* s_v = s_k + kTile * (D + 1);
-  float* s_q = s_v + kTile * (D + 1);
-  float* s_do = s_q + kTile * (D + 1);
-  float* s_pt = s_do + kTile * (D + 1);   // P^T tile: [key][query]
-  float* s_dst = s_pt + kTile * kPadP;    // dS^T tile
-  float* s_lse = s_dst + kTile * kPadP;
-  float* s_dsum = s_lse + kTile;
-  const int kt = blockIdx.x;   // causal: the first k-tiles see the most rows
-  const int hi = blockIdx.y, bi = blockIdx.z;
-  const int kh = h / group;
-  const size_t row_base = (static_cast<size_t>(bi) * h + hi) * s;
-  const size_t q_base = row_base * D;
-  const size_t kv_base =
-      (static_cast<size_t>(bi) * kh + hi / group) * s * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = kt * kTile;
-  load_tile<D>(s_k, k + kv_base, k0, s);
-  load_tile<D>(s_v, v + kv_base, k0, s);
-  float acc_k[4][NC], acc_v[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.0f;
-  }
-  const int nq = (s + kTile - 1) / kTile;
-  for (int qt = causal ? kt : 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<D>(s_q, q + q_base, q0, s);
-    load_tile<D>(s_do, dout + q_base, q0, s);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      s_lse[threadIdx.x] = row < s ? lse[row_base + row] : 0.0f;
-      s_dsum[threadIdx.x] = row < s ? dsum[row_base + row] : 0.0f;
+  using G = F32Dkv<D>;
+  constexpr int TM = G::TM, NG = HeadCols<D>::NG, VW = HeadCols<D>::VW;
+  constexpr int kTileFloats = kF32Cols * (D + 4);
+  extern __shared__ __align__(16) float tiles[];
+  float* s_k = tiles;
+  float* s_v = s_k + G::KEYS * (D + 4);
+  float* s_q = s_v + G::KEYS * (D + 4);   // stage st at s_q + st * tile
+  float* s_do = s_q + 2 * kTileFloats;    // the same
+  float* s_pt = s_do + 2 * kTileFloats;   // P^T: [key][query]
+  float* s_dst = s_pt + G::KEYS * kPadS;  // dS^T
+  const int kt = blockIdx.y;
+  const int bh = blockIdx.x, hi = bh % h;
+  const int kvh = (bh / h) * (h / group) + hi / group;
+  const size_t row_base = static_cast<size_t>(bh) * s;
+  const float* qb = q + row_base * D;
+  const float* dob = dout + row_base * D;
+  const int k0 = kt * G::KEYS;
+  const int nq = (s + kF32Cols - 1) / kF32Cols;
+  const int q_first = causal ? k0 / kF32Cols : 0;
+  // this thread: keys rg + 16 i, q columns cg + 8 j of each tile
+  const int role = threadIdx.x / kF32Threads;   // group, warp-uniform
+  const int rg = threadIdx.x % kF32Threads / 8, cg = threadIdx.x % 8;
+  const float scale_log2 = scale * kLog2e;
+
+  copy_rows<D, G::KEYS, G::kThreads>(
+      s_k, k + static_cast<size_t>(kvh) * s * D, k0, s);
+  copy_rows<D, G::KEYS, G::kThreads>(
+      s_v, v + static_cast<size_t>(kvh) * s * D, k0, s);
+  copy_rows<D, kF32Cols, G::kThreads>(s_q, qb, q_first * kF32Cols, s);
+  copy_rows<D, kF32Cols, G::kThreads>(s_do, dob, q_first * kF32Cols, s);
+  async_copy::cp_async_commit();
+  float acc[TM][NG][VW] = {};   // dV (group 0) or dK / scale (group 1)
+  for (int qt = q_first; qt < nq; ++qt) {
+    const int q0 = qt * kF32Cols;
+    const int st = (qt - q_first) % 2;
+    const float* tq = s_q + st * kTileFloats;
+    const float* tdo = s_do + st * kTileFloats;
+    async_copy::cp_async_wait<0>();
+    __syncthreads();   // tile qt in; every thread is done with tile qt - 1
+    if (qt + 1 < nq) {
+      const int nx = (st ^ 1) * kTileFloats;
+      copy_rows<D, kF32Cols, G::kThreads>(s_q + nx, qb, q0 + kF32Cols, s);
+      copy_rows<D, kF32Cols, G::kThreads>(s_do + nx, dob, q0 + kF32Cols, s);
     }
-    __syncthreads();
-    // rows: keys ty + 16 i of this k-tile; columns: queries tx + 16 j
-    float st[4][4] = {}, dpt[4][4] = {};
-    product_abt<D>(st, s_k, s_q, tx, ty);
-    product_abt<D>(dpt, s_v, s_do, tx, ty);
+    async_copy::cp_async_commit();
+    float rows[8];   // lse (log2 domain) or dsum of the 8 q columns
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kpos = k0 + ty + 16 * i;
+    for (int j = 0; j < 8; ++j) {
+      const int qpos = q0 + cg + 8 * j;
+      rows[j] = qpos >= s ? 0.0f
+                          : role == 0 ? lse[row_base + qpos] * kLog2e
+                                      : dsum[row_base + qpos];
+    }
+    float sc[TM][8] = {};
+    if (role == 0) {
+      tile_abt<D, TM, 2>(sc, s_k, tq, rg, cg);   // S^T = K Q^T
+      const bool edge = (causal && q0 < k0 + G::KEYS - 1) ||
+                        q0 + kF32Cols > s || k0 + G::KEYS > s;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const int qpos = q0 + col;
-        const bool keep = qpos < s && kpos < s && (!causal || kpos <= qpos);
-        const float p = keep ? expf(st[i][j] * scale - s_lse[col]) : 0.0f;
-        s_pt[(ty + 16 * i) * kPadP + col] = p;
-        s_dst[(ty + 16 * i) * kPadP + col] = p * (dpt[i][j] - s_dsum[col]);
+      for (int i = 0; i < TM; ++i) {
+        const int kpos = k0 + rg + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int qpos = q0 + cg + 8 * j;
+          float p = exp2f(sc[i][j] * scale_log2 - rows[j]);
+          if (edge && (qpos >= s || kpos >= s || (causal && kpos > qpos))) {
+            p = 0.0f;
+          }
+          s_pt[(rg + 16 * i) * kPadS + cg + 8 * j] = p;
+        }
       }
+    } else {
+      tile_abt<D, TM, 2>(sc, s_v, tdo, rg, cg);  // dP^T = V dO^T
     }
-    __syncthreads();
-    product_px<D>(acc_v, s_pt, s_do, tx, ty);
-    product_px<D>(acc_k, s_dst, s_q, tx, ty);
+    __syncthreads();   // P^T in
+    if (role == 0) {
+      tile_px<D, TM>(acc, s_pt, tdo, rg, cg);    // dV += P^T dO
+    } else {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int at = (rg + 16 * i) * kPadS + cg + 8 * j;
+          s_dst[at] = s_pt[at] * (sc[i][j] - rows[j]);
+        }
+      }
+      __syncwarp();   // the octet's rows of dS^T in
+      tile_px<D, TM>(acc, s_dst, tq, rg, cg);    // dK += dS^T Q
+    }
   }
+  float* dst = role == 0 ? dv : dk;
+  const float mul = role == 0 ? 1.0f : scale;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
+  for (int i = 0; i < TM; ++i) {
+    const int row = k0 + rg + 16 * i;
     if (row >= s) continue;
-    float* ok = dk + q_base + static_cast<size_t>(row) * D;
-    float* ov = dv + q_base + static_cast<size_t>(row) * D;
+    float* at = dst + (row_base + row) * D + VW * cg;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      ok[tx + 16 * c] = acc_k[i][c] * scale;
-      ov[tx + 16 * c] = acc_v[i][c];
+    for (int g = 0; g < NG; ++g) {
+#pragma unroll
+      for (int e = 0; e < VW; ++e) at[8 * VW * g + e] = acc[i][g][e] * mul;
     }
   }
 }
@@ -399,9 +645,6 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kThreadsTC = 384;     // two consumer warpgroups, a producer
 constexpr int kConsumerRegs = 232;  // registers of a consumer thread
@@ -956,13 +1199,14 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
+// Dynamic shared memory of the f32 dQ kernel: q, dO, k, v and dS tiles.
 template <int D>
-constexpr size_t tiles_bytes(int n_tiles) {
-  return static_cast<size_t>(n_tiles) * kTile * (D + 1) * sizeof(float);
+constexpr size_t dq_f32_bytes() {
+  return (4 * kTile * (D + 1) + kTile * kPadP) * sizeof(float);
 }
 
-// Opt the f32 kernel into `bytes` of dynamic shared memory, launch it on
-// the (q- or k-tile, q-head, batch) grid, and return cudaGetLastError().
+// Opt the f32 dQ kernel into `bytes` of dynamic shared memory, launch it
+// on the (q tile, q-head, batch) grid, and return cudaGetLastError().
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, size_t bytes, int s, int h, int b,
            cudaStream_t stream, Args... args) {
@@ -975,18 +1219,19 @@ int launch(Kernel kernel, size_t bytes, int s, int h, int b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same for a bf16 kernel: kThreadsTC threads on the (batch x q-head,
-// tile of `rows` rows) grid, so that every head's first tile is scheduled
-// before any head's second.
+// Opt the kernel into `bytes` of dynamic shared memory, launch `threads`
+// threads a block on the (batch x q-head, tile of `rows` rows) grid, so
+// that every head's first tile is scheduled before any head's second, and
+// return cudaGetLastError().
 template <typename Kernel, typename... Args>
-int launch_tc(Kernel kernel, size_t bytes, int rows, int s, int h, int b,
-              cudaStream_t stream, Args... args) {
+int launch_rows(Kernel kernel, size_t bytes, int threads, int rows, int s,
+                int h, int b, cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(b * h, (s + rows - 1) / rows);
-  kernel<<<grid, kThreadsTC, bytes, stream>>>(args...);
+  kernel<<<grid, threads, bytes, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1047,12 +1292,13 @@ template <int D>
 int fwd(const Problem& p, bool bf16_in, void* out, float* lse,
         cudaStream_t stream) {
   if (!bf16_in) {
-    return launch(flash_fwd_kernel<D>,
-                  tiles_bytes<D>(3) + kTile * kPadP * sizeof(float), p.s,
-                  p.h, p.b, stream, static_cast<const float*>(p.q),
-                  static_cast<const float*>(p.k),
-                  static_cast<const float*>(p.v), static_cast<float*>(out),
-                  lse, p.s, p.h, p.h / p.kh, p.causal, p.scale);
+    return launch_rows(flash_fwd_kernel<D>, F32Fwd<D>::kBytes,
+                       F32Fwd<D>::kThreads, F32Fwd<D>::ROWS, p.s, p.h, p.b,
+                       stream, static_cast<const float*>(p.q),
+                       static_cast<const float*>(p.k),
+                       static_cast<const float*>(p.v),
+                       static_cast<float*>(out), lse, p.s, p.h, p.h / p.kh,
+                       p.causal, p.scale);
   }
   CUtensorMap mq, mk, mv;
   if (!tile_map<D>(&mq, p.q, p.s, p.b * p.h, kFwdRows) ||
@@ -1060,9 +1306,10 @@ int fwd(const Problem& p, bool bf16_in, void* out, float* lse,
       !tile_map<D>(&mv, p.v, p.s, p.b * p.kh, kFwdKeys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_tc(flash_fwd_wgmma_kernel<D>, FwdLayout<D>::kBytes, kFwdRows,
-                   p.s, p.h, p.b, stream, mq, mk, mv, static_cast<bf16*>(out),
-                   lse, p.s, p.h, p.h / p.kh, p.causal, p.scale);
+  return launch_rows(flash_fwd_wgmma_kernel<D>, FwdLayout<D>::kBytes,
+                     kThreadsTC, kFwdRows, p.s, p.h, p.b, stream, mq, mk, mv,
+                     static_cast<bf16*>(out), lse, p.s, p.h, p.h / p.kh,
+                     p.causal, p.scale);
 }
 
 // Tensor maps of q and dO with `q_rows`-row boxes and of k and v with
@@ -1080,9 +1327,8 @@ template <int D>
 int dq(const Problem& p, bool bf16_in, const void* dout, const float* lse,
        const float* dsum, void* dq_out, cudaStream_t stream) {
   if (!bf16_in) {
-    return launch(flash_dq_kernel<D>,
-                  tiles_bytes<D>(4) + kTile * kPadP * sizeof(float), p.s,
-                  p.h, p.b, stream, static_cast<const float*>(p.q),
+    return launch(flash_dq_kernel<D>, dq_f32_bytes<D>(), p.s, p.h, p.b,
+                  stream, static_cast<const float*>(p.q),
                   static_cast<const float*>(p.k),
                   static_cast<const float*>(p.v),
                   static_cast<const float*>(dout), lse, dsum,
@@ -1093,34 +1339,35 @@ int dq(const Problem& p, bool bf16_in, const void* dout, const float* lse,
   if (!bwd_maps<D>(p, dout, kDqRows, kDqKeys, maps)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_tc(flash_dq_wgmma_kernel<D>, DqLayout<D>::kBytes, kDqRows,
-                   p.s, p.h, p.b, stream, maps[0], maps[1], maps[2], maps[3],
-                   lse, dsum, static_cast<bf16*>(dq_out), p.s, p.h,
-                   p.h / p.kh, p.causal, p.scale);
+  return launch_rows(flash_dq_wgmma_kernel<D>, DqLayout<D>::kBytes,
+                     kThreadsTC, kDqRows, p.s, p.h, p.b, stream, maps[0],
+                     maps[1], maps[2], maps[3], lse, dsum,
+                     static_cast<bf16*>(dq_out), p.s, p.h, p.h / p.kh,
+                     p.causal, p.scale);
 }
 
 template <int D>
 int dkv(const Problem& p, bool bf16_in, const void* dout, const float* lse,
         const float* dsum, void* dk, void* dv, cudaStream_t stream) {
   if (!bf16_in) {
-    return launch(flash_dkv_kernel<D>,
-                  tiles_bytes<D>(4) + 2 * kTile * kPadP * sizeof(float) +
-                      2 * kTile * sizeof(float),
-                  p.s, p.h, p.b, stream, static_cast<const float*>(p.q),
-                  static_cast<const float*>(p.k),
-                  static_cast<const float*>(p.v),
-                  static_cast<const float*>(dout), lse, dsum,
-                  static_cast<float*>(dk), static_cast<float*>(dv), p.s, p.h,
-                  p.h / p.kh, p.causal, p.scale);
+    return launch_rows(flash_dkv_kernel<D>, F32Dkv<D>::kBytes,
+                       F32Dkv<D>::kThreads, F32Dkv<D>::KEYS, p.s, p.h, p.b,
+                       stream, static_cast<const float*>(p.q),
+                       static_cast<const float*>(p.k),
+                       static_cast<const float*>(p.v),
+                       static_cast<const float*>(dout), lse, dsum,
+                       static_cast<float*>(dk), static_cast<float*>(dv), p.s,
+                       p.h, p.h / p.kh, p.causal, p.scale);
   }
   CUtensorMap maps[4];
   if (!bwd_maps<D>(p, dout, kDkvRows, kDkvKeys, maps)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_tc(flash_dkv_wgmma_kernel<D>, DkvLayout<D>::kBytes, kDkvKeys,
-                   p.s, p.h, p.b, stream, maps[0], maps[1], maps[2], maps[3],
-                   lse, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                   p.s, p.h, p.h / p.kh, p.causal, p.scale);
+  return launch_rows(flash_dkv_wgmma_kernel<D>, DkvLayout<D>::kBytes,
+                     kThreadsTC, kDkvKeys, p.s, p.h, p.b, stream, maps[0],
+                     maps[1], maps[2], maps[3], lse, dsum,
+                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), p.s, p.h,
+                     p.h / p.kh, p.causal, p.scale);
 }
 
 // Dynamic shared memory of the bf16 kernel `which` (0 forward, 1 dQ,
@@ -1130,6 +1377,15 @@ int bf16_smem(int which) {
   const size_t bytes = which == 0   ? FwdLayout<D>::kBytes
                        : which == 1 ? DqLayout<D>::kBytes
                                     : DkvLayout<D>::kBytes;
+  return static_cast<int>(bytes);
+}
+
+// The same of the f32 kernel `which`.
+template <int D>
+int f32_smem(int which) {
+  const size_t bytes = which == 0   ? F32Fwd<D>::kBytes
+                       : which == 1 ? dq_f32_bytes<D>()
+                                    : F32Dkv<D>::kBytes;
   return static_cast<int>(bytes);
 }
 
@@ -1192,6 +1448,11 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v,
 // 2 dK/dV) is launched with at head dim d, one of 16, 32, 64, 128.
 extern "C" int flash_bf16_smem_bytes(int which, int d) {
   FLASH_DISPATCH(bf16_smem, d, which)
+}
+
+// The same for the f32 kernel `which` (0 forward, 1 dQ, 2 dK/dV).
+extern "C" int flash_f32_smem_bytes(int which, int d) {
+  FLASH_DISPATCH(f32_smem, d, which)
 }
 
 extern "C" const char* kernel_error_string(int err) {

@@ -90,6 +90,14 @@ def check_kernel_inputs(name, *tensors) -> None:
                          f"{q.shape[-1]}")
 
 
+def aligned(t):
+    """``t`` contiguous with its data on a 16-byte boundary, as the kernels
+    copy rows 16 bytes at a time (cp.async, TMA): a copy where a view
+    starts off one."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def problem(q, k, causal: bool) -> tuple:
     """The trailing C arguments (b, h, kh, s, d, bf16, causal, scale,
     stream) of a launch on q's device."""
@@ -105,7 +113,7 @@ def launch_forward(name, q, k, v, causal, block_q, block_k, with_lse):
     check_not_differentiated(q, k, v)
     check_contract(q, k, v, block_q, block_k)
     check_kernel_inputs(name, q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = aligned(q), aligned(k), aligned(v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32,
                       device=q.device) if with_lse else None

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.flash_attention import (check_contract,
+from repro_torch.kernels.flash_attention import (aligned, check_contract,
                                                  check_kernel_inputs,
                                                  check_not_differentiated,
                                                  launch_forward, launchers,
@@ -54,8 +54,8 @@ def _launch_bwd(name, entry, n_out, q, k, v, do, lse, dsum, causal):
             raise ValueError(f"{what} must be f32 {tuple(q.shape[:3])} on "
                              f"{q.device}, got {t.dtype} {tuple(t.shape)} "
                              f"on {t.device}")
-    q, k, v, do, lse, dsum = (t.contiguous()
-                              for t in (q, k, v, do, lse, dsum))
+    q, k, v, do = (aligned(t) for t in (q, k, v, do))
+    lse, dsum = lse.contiguous(), dsum.contiguous()
     outs = [torch.empty_like(q) for _ in range(n_out)]
     lib, fn = launchers()[0], launchers()[entry]
     with torch.cuda.device(q.device):

@@ -375,6 +375,20 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
         flash_bwd.flash_attention_bwd(q, k, v, q, lse, do)
 
 
+def test_kernel_inputs_start_on_16_bytes():
+    """The wrappers hand the kernels rows that start on 16-byte boundaries:
+    a contiguous view 4 bytes off one is copied, an aligned tensor passes
+    as it is."""
+    flat = torch.arange(1 + 2 * 64 * 16, dtype=torch.float32)
+    q = flat[1:].view(1, 2, 64, 16)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 4
+    got = flash.aligned(q)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, q)
+    base = flat[:-1].view(1, 2, 64, 16)
+    assert flash.aligned(base) is base
+    assert flash.aligned(q.transpose(1, 2)).is_contiguous()
+
+
 def test_b8_refuses_inputs_that_require_grad():
     """B8 has no vjp in the reference: under grad mode an input that
     requires grad raises, naming the differentiable variant; under

@@ -509,7 +509,8 @@ def test_chol_kernels_reject_what_they_do_not_take(cuda):
 
 
 # Flash attention (B8, B9): kernel and plain version sum in other orders
-# (online softmax over 64-wide tiles against one softmax over the row); the
+# (online softmax over 64- or 128-wide tiles against one softmax over the
+# row); the
 # reference's own tolerances: 2e-5 (f32) and 2e-2 (bf16) for the output
 # (tests/test_kernels.py:30), 2e-4 for the gradients (:140), 1e-5 for lse.
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -536,21 +537,62 @@ def _attention_inputs(dev, b, h, kh, s, d, dtype, seed):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [8, 100, 192, 320, 512])
+@pytest.mark.parametrize("s", [8, 100, 192, 320, 512, 1, 127, 129, 384])
 @pytest.mark.parametrize("d", [16, 64, 128])
 def test_flash_kernels_match_plain(cuda, d, s, dtype, causal):
     """B8, B9's forward, dQ and dK/dV against their plain versions; 6 q
     heads on 2 kv heads (group 3: head h reads kv head h // 3, not h % 2);
-    S 8 and 100 are ragged to every tile; 192 and 320 are multiples of 64
-    (the f32 kernels' tiles, the bf16 dK/dV kernel's q tiles) but not of
-    128 (the bf16 kernels' blocks)."""
+    S 1, 8 and 100 are ragged to every tile; 192 and 320 are multiples of
+    64 (the f32 tiles and dK/dV key blocks, the bf16 dK/dV kernel's q
+    tiles) but not of 128 (the f32 forward's q rows at D <= 64, the bf16
+    kernels' blocks); 127 and 129 fall one below and one above 128, and
+    384 is a multiple of 128."""
     _check_flash_kernels(cuda, 2, 6, 2, s, d, dtype, causal)
 
 
-def test_flash_kernels_match_plain_at_full_width(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_kernels_match_plain_at_full_width(cuda, dtype):
     """The same checks at smollm-135m's attention: one sequence of 4096,
-    9 q heads on 3 kv heads, head dim 64, bf16, causal."""
-    _check_flash_kernels(cuda, 1, 9, 3, 4096, 64, torch.bfloat16, True)
+    9 q heads on 3 kv heads, head dim 64, causal, in both types."""
+    _check_flash_kernels(cuda, 1, 9, 3, 4096, 64, dtype, True)
+
+
+def test_flash_kernels_from_eight_threads_at_once(cuda):
+    """Eight threads run the f32 forward and backward at once, each on a
+    stream of its own: each result equal to the same call made alone."""
+    import threading
+    _no_tf32()
+    problems = [_attention_inputs(cuda, 1, 6, 2, 100 + 50 * t, 64,
+                                  torch.float32, 40 + t) for t in range(8)]
+
+    def both(q, k, v, do):
+        out, lse = flash_attention_bwd.flash_attention_fwd(q, k, v)
+        return (flash_attention.flash_attention(q, k, v), out, lse,
+                *flash_attention_bwd.flash_attention_bwd(q, k, v, out, lse,
+                                                         do))
+
+    alone = [both(*p) for p in problems]
+    torch.cuda.synchronize()
+    got = [None] * 8
+    start = threading.Barrier(8)
+
+    def work(t):
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.default_stream())
+        with torch.cuda.stream(stream):
+            start.wait()
+            got[t] = both(*problems[t])
+        stream.synchronize()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for t in range(8):
+        for g_, w_ in zip(got[t], alone[t]):
+            assert torch.equal(g_, w_), f"thread {t}"
 
 
 def _check_flash_kernels(cuda, b, h, kh, s, d, dtype, causal):

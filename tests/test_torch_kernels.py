@@ -616,7 +616,8 @@ def _fake_flash_build(tensor_core_ops):
                    "flash_dq_kernel", "flash_dkv_kernel"):
         for d in (16, 32, 64, 128):
             n = (tensor_core_ops if "wgmma" in kernel else 0)
-            funcs.append((f"_ZN18flash_cu_5326155222{kernel}ILi{d}EEEv", n))
+            mangled = f"{len(kernel)}{kernel}ILi{d}EEEv"
+            funcs.append((f"_ZN18flash_cu_53261552{mangled}", n))
     sass = "\n".join(
         f"\t\tFunction : {name}\n" + "".join(
             f"        /*{i:04x}*/    HGMMA.64x64x16.F32.BF16 R1 ;\n"
@@ -629,7 +630,11 @@ def _fake_flash_build(tensor_core_ops):
     def smem_bytes(which, d):
         return 1000 * which + d
 
-    lib = types.SimpleNamespace(flash_bf16_smem_bytes=smem_bytes)
+    def f32_smem_bytes(which, d):
+        return 100_000 + 1000 * which + d
+
+    lib = types.SimpleNamespace(flash_bf16_smem_bytes=smem_bytes,
+                                flash_f32_smem_bytes=f32_smem_bytes)
     return types.SimpleNamespace(
         load=lambda name: lib, build_log=lambda name: log,
         sass=lambda name: sass, kernel_resources=build.kernel_resources,
@@ -637,9 +642,9 @@ def _fake_flash_build(tensor_core_ops):
 
 
 def test_flash_build_report_requires_tensor_cores_in_bf16_kernels():
-    """chip_smoke's build line: every flash kernel by name and head dim,
-    dynamic shared memory for the bf16 ones; a bf16 kernel without a
-    tensor-core instruction fails the phase."""
+    """chip_smoke's build line: every flash kernel by name and head dim
+    with its dynamic shared memory; a bf16 kernel without a tensor-core
+    instruction fails the phase."""
     import importlib.util
     from pathlib import Path
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
@@ -651,7 +656,8 @@ def test_flash_build_report_requires_tensor_cores_in_bf16_kernels():
     assert rows["flash_dq_wgmma_kernel<64>"] == {
         "registers": 168, "HGMMA": 2, "HMMA": 0, "smem_bytes": 1064}
     assert rows["flash_dkv_kernel<128>"] == {
-        "registers": 168, "HGMMA": 0, "HMMA": 0}
+        "registers": 168, "HGMMA": 0, "HMMA": 0, "smem_bytes": 102_128}
+    assert rows["flash_fwd_kernel<64>"]["smem_bytes"] == 100_064
     with pytest.raises(RuntimeError, match="no tensor-core instruction"):
         smoke.flash_build_report(_fake_flash_build(0))
 

@@ -6,6 +6,7 @@ read against its parent on the same card within one call.
 
     python3 tools/compare_trees.py PARENT_DIR CHANGED_DIR [--chunk]
         [--calibrate]
+    python3 tools/compare_trees.py PARENT_DIR CHANGED_DIR --flash
 
 Each run prints one JSON line: B1 at (640, 72, 72) and (20480, 72, 72),
 B7 forward at L 512, B (512, 50,176) and backward at B (512, 2048), B2 at
@@ -19,7 +20,12 @@ one 20480-lane init chunk at CONFIG (lane-ticks per second); with
 --calibrate also ``launch.explore.calibrate`` at CONFIG with the
 reference's defaults cut to 2 epochs (chip_smoke.py's phase calibrate:
 9000 B1 and 23 B2 launches through ``kernels.ops``), its wall on the host
-clock. The card's name and power limit come last.
+clock. With --flash, instead of all of that, the flash-attention kernels
+at smollm-135m's attention (B 4, S 4096, 9 q heads on 3 kv heads, D 64,
+causal): the f32 forward (B8), dQ and dK/dV, and the bf16 forward, each
+checked against its plain version (f32 out 2e-5, lse 1e-5, gradients
+2e-4; bf16 2e-2) and timed as above. The card's name and power limit come
+last.
 """
 from __future__ import annotations
 
@@ -56,6 +62,60 @@ def events_ms(torch, fn, reps: int = 20, inner: int = 10) -> dict:
 
 CAL_FLAGS = dict(n_islands=8, mu=16, lam=16, steps_per_epoch=4, epochs=2,
                  replicates=5, archive_size=256, merge_top_k=8)
+
+
+def flash_worker() -> dict:
+    """Check and time the flash kernels of the tree on sys.path."""
+    import time
+
+    import torch
+
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.monotonic()
+    build.build(["flash"])
+    out = {"build_s": time.monotonic() - t0}
+    b, s, h, kh, d = 4, 4096, 9, 3, 64
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((b, h, s, d), (b, kh, s, d), (b, kh, s, d),
+                                 (b, h, s, d)))
+
+    def hold(name, got, want, tol):
+        err = (got.float() - want.float()).abs().max().item()
+        out[f"{name}_max_abs_err"] = err
+        if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+            raise RuntimeError(f"flash {name}: max abs err {err} (tol {tol})")
+
+    o, lse = fab.flash_attention_fwd(q, k, v)
+    want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v)
+    hold("f32_out", o, want_o, 2e-5)
+    hold("f32_lse", lse, want_lse, 1e-5)
+    del want_o, want_lse
+    dsum = (do * o).sum(-1)
+    dq = fab.flash_attention_dq(q, k, v, do, lse, dsum)
+    dk, dv = fab.flash_attention_dkv(q, k, v, do, lse, dsum)
+    for name, got, want in zip(("dq", "dk_h", "dv_h"), (dq, dk, dv),
+                               ref.flash_attention_bwd_ref(q, k, v, o, lse,
+                                                           do)):
+        hold(f"f32_{name}", got, want, 2e-4)
+    del dq, dk, dv
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    hold("bf16_out", fa.flash_attention(qb, kb, vb),
+         ref.flash_attention_ref(qb, kb, vb), 2e-2)
+    torch.cuda.empty_cache()
+    out["f32_fwd_ms"] = events_ms(torch, lambda: fa.flash_attention(q, k, v))
+    out["f32_dq_ms"] = events_ms(
+        torch, lambda: fab.flash_attention_dq(q, k, v, do, lse, dsum))
+    out["f32_dkv_ms"] = events_ms(
+        torch, lambda: fab.flash_attention_dkv(q, k, v, do, lse, dsum))
+    out["bf16_fwd_ms"] = events_ms(
+        torch, lambda: fa.flash_attention(qb, kb, vb))
+    return out
 
 
 def worker(chunk: bool, calibrate: bool = False) -> dict:
@@ -144,14 +204,16 @@ def worker(chunk: bool, calibrate: bool = False) -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
         sys.path.insert(0, str(Path(sys.argv[2]) / "src"))
-        print(json.dumps(worker("--chunk" in sys.argv,
-                                "--calibrate" in sys.argv)), flush=True)
+        row = (flash_worker() if "--flash" in sys.argv else
+               worker("--chunk" in sys.argv, "--calibrate" in sys.argv))
+        print(json.dumps(row), flush=True)
         return 0
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    extra = [f for f in ("--chunk", "--calibrate") if f in sys.argv]
+    extra = [f for f in ("--chunk", "--calibrate", "--flash")
+             if f in sys.argv]
     trees = {"A": Path(args[0]).resolve(), "B": Path(args[1]).resolve()}
     for label in ("A", "B", "B", "A"):
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

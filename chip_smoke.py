@@ -19,14 +19,18 @@ Phases (any failure exits non-zero):
   1. build    nvcc builds every csrc/*.cu, one process per source at once;
               a second build line lists each flash kernel's registers,
               spills, dynamic shared memory (bf16) and HGMMA/HMMA count
-              from cuobjdump -sass (a bf16 kernel with none fails); a third
+              from cuobjdump -sass (a bf16 kernel with none fails, and so
+              does a spill of the f32 dQ kernel at any D); a third
               the same of cholesky.cu's kernels (registers, spills, dynamic
               shared memory), which must be exactly the expected four; a
               fourth the registers and spills of diffusion.cu's and
               trisolve.cu's kernels, which must be exactly the expected
               seven; a fifth the registers, spills, static shared memory
               and SASS opcode counts (DOMINANCE_OPCODES) of dominance.cu's
-              kernels, which must be exactly the expected 29.
+              kernels, which must be exactly the expected 29; a sixth the
+              registers, spills, static shared memory, MUFU count and row
+              loop's SASS instructions of gp.cu's kernels, which must be
+              exactly the expected 15 (gp_build_report).
   2. package  two tasks packaged through torch.export on the card
               (core/packaging.py), saved, loaded back without their code
               and run: the ants model's apply form at CONFIG's world, 640
@@ -46,7 +50,9 @@ Phases (any failure exits non-zero):
               to the factor padded to the block). "ms" is the kernel's time on
               the card (torch.profiler's CUDA kernel records), beside its
               plain version's and, where one PyTorch call computes the
-              same thing, that call's; "call_ms" is the per-call time of
+              same thing, that call's (the GP assembly also beside its
+              issue floor, at the gp_chol path's shape too, and its
+              launch from gp.launch_config); "call_ms" is the per-call time of
               back-to-back calls between CUDA events, which the host's
               launch cost sets for small kernels. For the blocked
               Cholesky (two streams, two launches per 64-wide step), "ms"
@@ -323,7 +329,8 @@ def flash_build_report(build) -> dict:
     """Every flash kernel of the built library: registers and spills
     (ptxas -v), the dynamic shared memory it is launched with, and the
     count of tensor-core instructions (HGMMA, HMMA) in its SASS. Fails
-    unless every bf16 kernel has some."""
+    unless every bf16 kernel has some, or if the f32 dQ kernel spills at
+    any head dim."""
     import ctypes
     import re
     lib = build.load("flash")
@@ -353,6 +360,11 @@ def flash_build_report(build) -> dict:
             require(counts["HGMMA"] + counts["HMMA"] > 0,
                     f"bf16 kernel {kernel}<{d}> runs no tensor-core "
                     f"instruction")
+        if kernel == "flash_dq_kernel":
+            spills = [rows[f"{kernel}<{d}>"].get(k, 0)
+                      for k in ("spill_stores", "spill_loads")]
+            require(spills == [0, 0], f"{kernel}<{d}> spills "
+                    f"{spills[0]} / {spills[1]} bytes (stores / loads)")
     want = {f"{k}<{d}>" for k in kernels for d in (16, 32, 64, 128)}
     require(set(rows) == want, f"flash.cu kernels: expected {sorted(want)}, "
             f"got {sorted(rows)}")
@@ -498,6 +510,31 @@ def dominance_build_report(build) -> dict:
         rows[name] = {**res, **counts.get(mangled, {})}
     require(set(rows) == want, f"dominance.cu kernels: expected "
             f"{sorted(want)}, got {sorted(rows)}")
+    return rows
+
+
+def gp_build_report(build) -> dict:
+    """Every kernel of gp.cu (``gp.KERNEL_NAMES``: D 2 and 8 with 16-byte
+    and scalar stores, the generic D with scalar stores, each epilogue):
+    registers, spills and static shared memory (ptxas -v), the MUFU
+    instructions in its SASS, and the SASS instructions of its row loop
+    (``gp.row_loop_instructions``; one trip writes 4 outputs a thread).
+    Fails unless the kernels are exactly the expected ones and each has a
+    row loop."""
+    from repro_torch.kernels import gp
+    text = build.sass("gp")
+    loops = gp.row_loop_instructions(text)
+    mufu = build.sass_counts(text, ("MUFU",))
+    rows = {}
+    for mangled, res in build.kernel_resources(build.build_log("gp")).items():
+        name = gp.kernel_name(mangled)
+        require(name in gp.KERNEL_NAMES, f"unknown kernel {mangled} in gp.cu")
+        require(mangled in loops, f"{name}: no row loop in its SASS")
+        rows[name] = {**res, **mufu.get(mangled, {}),
+                      "row_loop_instructions": loops[mangled],
+                      "per_output": loops[mangled] / gp.VEC}
+    require(set(rows) == gp.KERNEL_NAMES, f"gp.cu kernels: expected "
+            f"{sorted(gp.KERNEL_NAMES)}, got {sorted(rows)}")
     return rows
 
 
@@ -3239,6 +3276,8 @@ def main() -> int:
               "stencil_solve_kernels": stencil_solve_build_report(build)})
         emit({"phase": "build",
               "dominance_kernels": dominance_build_report(build)})
+        gp_kernels = gp_build_report(build)
+        emit({"phase": "build", "gp_kernels": gp_kernels})
     except BaseException:
         package.kill()
         raise
@@ -3440,21 +3479,36 @@ def main() -> int:
     # B4: the surrogate's distance assembly (the default run's two GP fits
     # at 16 and 24 points and its largest history, select_lengthscale's
     # subsample, K_mm, K_mn at 50,000, and update_inducing's K_m,new for a
-    # tell of 8), bitwise; the covariance epilogues at the K_mn shape
-    def points(n):
-        return torch.rand((n, 2), generator=gen, device=dev)
+    # tell of 8), bitwise; the covariance epilogues at the K_mn shape and
+    # at the gp_chol path's (4096 points in 8 dims). Beside the bound, the
+    # issue floor: the row loop's SASS instructions an output (phase
+    # build's gp_kernels) times the outputs, over 4 warp instructions a
+    # clock on every SM at the SM clock nvidia-smi gives as the card's
+    # most (clocks.max.sm; clocks.sm, read beside it, is the clock now)
+    def points(n, d=2):
+        return torch.rand((n, d), generator=gen, device=dev)
 
     def ulps(a, b):
         return (a.view(torch.int32).long() - b.view(torch.int32).long()) \
             .abs().max().item()
 
-    for n1, n2, kind in ((16, 16, "sqdist"), (24, 24, "sqdist"),
-                         (80, 80, "sqdist"), (1024, 1024, "sqdist"),
-                         (512, 512, "sqdist"), (512, 8, "sqdist"),
-                         (512, 50000, "sqdist"),
-                         (512, 50000, "matern52"), (512, 50000, "rbf")):
-        x1 = points(n1)
-        x2 = x1 if n1 == n2 else points(n2)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.split("\n")[0].split(",")
+    sm_mhz, sm_max_mhz = (float(x) for x in smi)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_per_s = 4 * sms * sm_max_mhz * 1e6
+    for n1, n2, d, kind in ((16, 16, 2, "sqdist"), (24, 24, 2, "sqdist"),
+                            (80, 80, 2, "sqdist"), (1024, 1024, 2, "sqdist"),
+                            (512, 512, 2, "sqdist"), (512, 8, 2, "sqdist"),
+                            (512, 50000, 2, "sqdist"),
+                            (512, 50000, 2, "matern52"),
+                            (512, 50000, 2, "rbf"),
+                            (4096, 4096, 8, "matern52"),
+                            (4096, 4096, 8, "rbf")):
+        x1 = points(n1, d)
+        x2 = x1 if n1 == n2 else points(n2, d)
         if kind == "sqdist":
             name = "gp_sqdist"
             run = lambda: gp.gp_sqdist(x1, x2)          # noqa: E731
@@ -3473,15 +3527,23 @@ def main() -> int:
         err = (got - want).abs().max().item()
         n_ulp = ulps(got, want)
         require(torch.equal(got, want), f"{name}({kind}) bitwise at "
-                f"({n1},{n2},2): max abs err {err}, {n_ulp} ulp")
-        b_ms, b_by = bound_ms((n1 + n2) * 2 * 4 + n1 * n2 * 4,
-                              n1 * n2 * (2 * 2 + 2 + epilogue_ops)
-                              + (n1 + n2) * 2 * 2)
-        r = {"kernel": name, "kind": kind, "shape": [n1, n2, 2],
+                f"({n1},{n2},{d}): max abs err {err}, {n_ulp} ulp")
+        b_ms, b_by = bound_ms((n1 + n2) * d * 4 + n1 * n2 * 4,
+                              n1 * n2 * (2 * d + 2 + epilogue_ops)
+                              + (n1 + n2) * d * 2)
+        kernel = gp_kernels[gp.kernel_name_for(d, kind, n2)]
+        r = {"kernel": name, "kind": kind, "shape": [n1, n2, d],
              "bitwise": True, "max_abs_err": err, "max_ulp": n_ulp,
              "ms": device_ms(torch, run), "call_ms": call_ms(torch, run),
              "plain_ms": device_ms(torch, plain, reps=5),
-             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+             "launch": dataclasses.asdict(gp.launch_config(
+                 n1, n2, sms, gp.blocks_per_sm(0, d, gp.KINDS[kind],
+                                               n2 % gp.VEC == 0))),
+             "row_loop_per_output": kernel["per_output"],
+             "issue_floor_ms": kernel["per_output"] * n1 * n2 / 32
+             / issue_per_s * 1e3,
+             "sm_clock_mhz": sm_mhz, "sm_max_clock_mhz": sm_max_mhz}
         results[(name, kind, n1, n2)] = r
         emit({"phase": "kernels", **r})
 
@@ -4156,7 +4218,7 @@ def main() -> int:
         ("gp_sqdist", ("gp_sqdist", "sqdist", 512, 50000), "gp.cu",
          "src/repro/kernels/gp.py:93", "surrogate_big"),
         # gp_matrix: the gp_chol path's unfused sweep assembles with it
-        ("gp_matrix", ("gp_matrix", "matern52", 512, 50000), "gp.cu",
+        ("gp_matrix", ("gp_matrix", "matern52", 4096, 4096), "gp.cu",
          "src/repro/kernels/gp.py:99", "gp_chol"),
         ("chol_blocked", ("chol_blocked", 4096), "cholesky.cu",
          "src/repro/kernels/cholesky.py:165", "gp_chol"),

@@ -56,34 +56,41 @@
 // f32, on the CUDA cores: the f32 FMAs hold the 2e-5 gate against the
 // plain version, which TF32 tensor cores would not. The bound is the f32
 // FMA rate (67 TFLOP/s).
-//  * flash_fwd_kernel and flash_dkv_kernel: register tiles fed by 128-bit
-//    shared loads. Tiles sit in shared memory row-major with row stride
-//    D + 4 (q, k, v, dO, as they are in device memory: no transpose) and
-//    score tiles (P, P^T, dS^T) with stride 72. In a group of 128 threads,
-//    thread (rg, cg) of 16 x 8 owns rows rg + 16 i (i < TM) and score
-//    columns cg + 8 j (j < 8), and head-dim columns in groups of 4 (2 at D
-//    16); both products read rows along their inner dimension, 4 floats a
-//    load: per 4 steps of it, S = Q K^T issues TM + 8 loads for 32 TM FMAs
-//    and O += P V TM + D / 8 for TM D / 2. At TM 8 (D 64) that is 16 FMAs
-//    a load: one byte of shared memory a lane's FMA, which at the f32 peak
-//    is the 128 bytes a clock an SM's shared memory delivers, so the two
-//    pipes share the time (the kernels run near 58 % of the f32 peak).
-//    A row's max is a shuffle among the 8 lanes of an octet; the octet that
-//    writes a row of a score tile is the one that reads it (a __syncwarp).
-//    Tiles arrive by 16-byte cp.async while the tile before them is
-//    computed; rows past S are stored as zeros and not written back.
+//  * flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel: register
+//    tiles fed by 128-bit shared loads. Tiles sit in shared memory
+//    row-major with row stride D + 4 (q, k, v, dO, as they are in device
+//    memory: no transpose) and score tiles (P, dS, P^T, dS^T) with stride
+//    72. In a group of 128 threads, thread (rg, cg) of 16 x 8 owns rows
+//    rg + 16 i (i < TM) and score columns cg + 8 j (j < 8), and head-dim
+//    columns in groups of 4 (2 at D 16); both products read rows along
+//    their inner dimension, 4 floats a load: per 4 steps of it, S = Q K^T
+//    issues TM + 8 loads for 32 TM FMAs and O += P V TM + D / 8 for
+//    TM D / 2. At TM 8 (D 64) that is 16 FMAs a load: one byte of shared
+//    memory a lane's FMA, which at the f32 peak is the 128 bytes a clock
+//    an SM's shared memory delivers, so the two pipes share the time (the
+//    kernels run near 58 % of the f32 peak; at TM 4, 10.7 FMAs a load, the
+//    shared memory alone caps them at 2/3 of it). A row's max is a shuffle
+//    among the 8 lanes of an octet; the octet that writes a row of a score
+//    tile is the one that reads it (a __syncwarp). Tiles arrive by 16-byte
+//    cp.async while other work runs; rows past S are stored as zeros and
+//    not written back.
 //    Forward: two groups own 128 q rows each (one group of 64 rows at D
 //    128), a two-stage ring of 64-key k/v tiles, one block barrier a tile;
 //    a group skips the tiles past its last causal row. dK/dV: 128 keys (32
 //    at D 128) and a two-stage ring of 64-row q/dO tiles; group 0 computes
 //    S^T, P^T and dV += P^T dO, group 1 dP^T, dS^T and dK += dS^T Q, so a
-//    thread holds one TM x D / 8 accumulator. Both are one 256-thread
-//    block an SM (212,992 bytes of shared memory at D 64).
-//  * flash_dq_kernel: one block of 256 threads owns a 64-row tile; thread
-//    (tx, ty) of 16 x 16 owns rows ty + 16 a (a < 4) and columns tx + 16 c
-//    of every 64 x 64 score tile and of the 64 x D accumulators; tiles in
-//    f32 with row stride D + 1, copied element by element.
-//
+//    thread holds one TM x D / 8 accumulator. dQ keeps q and dO fixed, so
+//    the forward's 256 rows a block would not fit: 128 q rows, computed
+//    whole (TM 8) by each of two groups that split the 64-key tiles (group
+//    0 the even ones, group 1 the odd), each with its own k/v buffers and
+//    a named barrier of its own; a group computes S, writes P to its score
+//    tile, computes dP, forms dS over P and adds dS K, every product at 16
+//    FMAs a load; at the end group 1's partial dQ joins group 0's through
+//    shared memory, always in that order. At D 64 a group's buffers hold
+//    one stage (while a group waits for a tile the other computes), at D
+//    16 and 32 two; at D 128 one group of 64 rows walks a two-stage ring.
+//    Each is one block an SM (212,992 bytes of shared memory at D 64 for
+//    the forward and dK/dV, 214,016 for dQ).
 // More than 48 KB of dynamic shared memory is opted into per kernel with
 // cudaFuncSetAttribute.
 //
@@ -95,7 +102,11 @@
 // ms forward, 12.6 ms backward. tools/compare_trees.py --flash (medians
 // of 20 samples, the kernels before this design and after in turns): f32
 // forward 3.74 -> 2.01 ms (57 % of its 1.15 ms bound), dK/dV 7.13 -> 4.02
-// ms (57 % of 2.31 ms), dQ 5.39 ms.
+// ms (57 % of 2.31 ms), and f32 dQ 5.40 -> 3.02 ms (57 % of its 1.73 ms
+// bound). tools/flash_variants.py (medians of 16 samples in turns) chose
+// the dQ layout: the key split 2.84 ms (as measured before its last
+// clean-up), two groups owning 64 rows each at TM 4 with one shared ring
+// 3.24 ms, one group of 128 rows 3.47 ms, the earlier kernel 5.36 ms.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,143 +119,11 @@
 
 namespace {
 
-
-constexpr int kTile = 64;            // rows of a q tile and of a k tile
-constexpr int kThreads = 256;        // 16 x 16
-constexpr int kPadP = kTile + 1;     // row stride of a 64 x 64 score tile
-
-// Rows [row0, row0 + 64) of the (S, D) matrix at src into dst (row stride
-// D + 1), in f32; rows at or past S are zero.
-template <int D>
-__device__ void load_tile(float* dst, const float* __restrict__ src, int row0,
-                          int s) {
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int row = row0 + r;
-    dst[r * (D + 1) + c] =
-        row < s ? src[static_cast<size_t>(row) * D + c] : 0.0f;
-  }
-}
-
-// acc[i][j] += sum_k a[ty + 16 i][k] * b[tx + 16 j][k]: a 64 x 64 tile of
-// A B^T from two (64, D) tiles of row stride D + 1.
-template <int D>
-__device__ __forceinline__ void product_abt(float (&acc)[4][4],
-                                            const float* a, const float* b,
-                                            int tx, int ty) {
-#pragma unroll 4
-  for (int k = 0; k < D; ++k) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
-
-// acc[i][c] += sum_r p[ty + 16 i][r] * x[r][tx + 16 c]: a 64 x 64 tile
-// (stride kPadP) times a (64, D) tile (stride D + 1).
-template <int D>
-__device__ __forceinline__ void product_px(float (&acc)[4][D / 16],
-                                           const float* p, const float* x,
-                                           int tx, int ty) {
-#pragma unroll 4
-  for (int r = 0; r < kTile; ++r) {
-    float pv[4], xv[D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p[(ty + 16 * i) * kPadP + r];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) xv[c] = x[r * (D + 1) + tx + 16 * c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        acc[i][c] = fmaf(pv[i], xv[c], acc[i][c]);
-      }
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ dsum,
-                float* __restrict__ dq, int s, int h, int group, int causal,
-                float scale) {
-  constexpr int NC = D / 16;
-  extern __shared__ float smem[];
-  float* s_q = smem;
-  float* s_do = s_q + kTile * (D + 1);
-  float* s_k = s_do + kTile * (D + 1);
-  float* s_v = s_k + kTile * (D + 1);
-  float* s_ds = s_v + kTile * (D + 1);
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int hi = blockIdx.y, bi = blockIdx.z;
-  const int kh = h / group;
-  const size_t row_base = (static_cast<size_t>(bi) * h + hi) * s;
-  const size_t q_base = row_base * D;
-  const size_t kv_base =
-      (static_cast<size_t>(bi) * kh + hi / group) * s * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = qt * kTile;
-  load_tile<D>(s_q, q + q_base, q0, s);
-  load_tile<D>(s_do, dout + q_base, q0, s);
-  float row_lse[4], row_dsum[4];
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    row_lse[i] = row < s ? lse[row_base + row] : 0.0f;
-    row_dsum[i] = row < s ? dsum[row_base + row] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
-  const int nk = causal ? qt + 1 : (s + kTile - 1) / kTile;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<D>(s_k, k + kv_base, k0, s);
-    load_tile<D>(s_v, v + kv_base, k0, s);
-    __syncthreads();
-    float sc[4][4] = {}, dp[4][4] = {};
-    product_abt<D>(sc, s_q, s_k, tx, ty);
-    product_abt<D>(dp, s_do, s_v, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool keep = kpos < s && (!causal || kpos <= qpos);
-        const float p = keep ? expf(sc[i][j] * scale - row_lse[i]) : 0.0f;
-        s_ds[(ty + 16 * i) * kPadP + tx + 16 * j] =
-            p * (dp[i][j] - row_dsum[i]);
-      }
-    }
-    __syncthreads();
-    product_px<D>(acc, s_ds, s_k, tx, ty);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= s) continue;
-    float* o = dq + q_base + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[tx + 16 * c] = acc[i][c] * scale;
-  }
-}
-
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// f32 forward and dK/dV: register tiles fed by 128-bit shared loads
+// f32 forward, dQ and dK/dV: register tiles fed by 128-bit shared loads
 // ---------------------------------------------------------------------------
 constexpr int kF32Threads = 128;       // 16 row groups x 8 column groups
 constexpr int kF32Cols = 64;           // score columns of a tile
@@ -283,6 +162,26 @@ struct F32Dkv {
       sizeof(float) * ((2 * KEYS + 4 * kF32Cols) * (D + 4) + 2 * KEYS * kPadS);
 };
 
+// dQ: a block of GROUPS groups of kF32Threads owns ROWS = 16 TM q rows and
+// keeps them (q, dO, lse, dsum) in shared memory. Every group computes all
+// the rows; the groups split the 64-key tiles (group g takes g, g +
+// GROUPS, ...), each through a ring of STAGES stages of its own, and
+// their partial dQ are summed at the end.
+template <int D>
+struct F32Dq {
+  static constexpr int TM = D == 128 ? 4 : 8;
+  static constexpr int GROUPS = D == 128 ? 1 : 2;
+  static constexpr int STAGES = D == 64 ? 1 : 2;
+  static constexpr int ROWS = 16 * TM;
+  static constexpr int kThreads = kF32Threads * GROUPS;
+  // q and dO, the rings' k and v tiles (row stride D + 4), each group's
+  // score tile, the rows' lse (log2 domain) and dsum
+  static constexpr size_t kBytes =
+      sizeof(float) * ((2 * ROWS + 2 * GROUPS * STAGES * kF32Cols) * (D + 4) +
+                       GROUPS * ROWS * kPadS + 2 * ROWS);
+  static_assert(GROUPS <= 2, "the partial sums pair two groups");
+};
+
 template <int VW>
 __device__ __forceinline__ void load_vec(float (&x)[VW], const float* p) {
   if constexpr (VW == 4) {
@@ -304,12 +203,12 @@ __device__ __forceinline__ float part(const float4& v, int c) {
 template <int D, int ROWS, int NT>
 __device__ __forceinline__ void copy_rows(float* dst,
                                           const float* __restrict__ src,
-                                          int row0, int s) {
+                                          int row0, int s, int tid) {
   constexpr int kChunks = D / 4;
   static_assert(ROWS * kChunks % NT == 0, "whole passes");
 #pragma unroll
   for (int n = 0; n < ROWS * kChunks / NT; ++n) {
-    const int e = threadIdx.x + n * NT;
+    const int e = tid + n * NT;
     const int r = e / kChunks, c = e % kChunks;
     float* d = dst + r * (D + 4) + 4 * c;
     if (row0 + r < s) {
@@ -319,6 +218,14 @@ __device__ __forceinline__ void copy_rows(float* dst,
       *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   }
+}
+
+// The same, thread threadIdx.x of NT.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void copy_rows(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int s) {
+  copy_rows<D, ROWS, NT>(dst, src, row0, s, threadIdx.x);
 }
 
 // acc[i][j] += sum_k a[rg + 16 i][k] b[cg + 8 j][k] over the head dim, a
@@ -637,6 +544,183 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int g = 0; g < NG; ++g) {
 #pragma unroll
       for (int e = 0; e < VW; ++e) at[8 * VW * g + e] = acc[i][g][e] * mul;
+    }
+  }
+}
+
+// The kF32Threads threads of group g meet (named barrier g + 1).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(kF32Threads) : "memory");
+}
+
+// B9's dQ: block (batch x q-head, q tile), the longest causal rows first.
+// q and dO are loaded once; each group's k/v tiles come by cp.async (with
+// two stages, tile n + 1 is copied while tile n is computed; with one, the
+// other group computes while a group waits). Per tile a group computes S =
+// Q K^T, writes P = exp2(S scale log2e - lse log2e) to its score tile,
+// computes dP = dO V^T, turns P into dS = P (dP - dsum) in place and adds
+// dS K to its dQ. A row of the score tile is written and read by the 8
+// lanes of one octet; dP and S are never live at once.
+template <int D>
+__global__ void __launch_bounds__(F32Dq<D>::kThreads, 1)
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ dsum,
+                float* __restrict__ dq, int s, int h, int group, int causal,
+                float scale) {
+  using G = F32Dq<D>;
+  constexpr int TM = G::TM, NG = HeadCols<D>::NG, VW = HeadCols<D>::VW;
+  constexpr int kTileFloats = kF32Cols * (D + 4);
+  constexpr int kRingFloats = 2 * G::STAGES * kTileFloats;
+  extern __shared__ __align__(16) float tiles[];
+  float* s_q = tiles;
+  float* s_do = s_q + G::ROWS * (D + 4);
+  float* s_rings = s_do + G::ROWS * (D + 4);   // stage st: k, then v
+  float* s_p = s_rings + G::GROUPS * kRingFloats;
+  float* s_lse = s_p + G::GROUPS * G::ROWS * kPadS;
+  float* s_dsum = s_lse + G::ROWS;
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x, hi = bh % h;
+  const int kvh = (bh / h) * (h / group) + hi / group;
+  const float* kb = k + static_cast<size_t>(kvh) * s * D;
+  const float* vb = v + static_cast<size_t>(kvh) * s * D;
+  const size_t row_base = static_cast<size_t>(bh) * s;
+  const int q0 = qt * G::ROWS;
+  const int n_tiles = (s + kF32Cols - 1) / kF32Cols;
+  const int nk = causal ? min(n_tiles, (q0 + G::ROWS + kF32Cols - 1) / kF32Cols)
+                        : n_tiles;
+  // this thread: rows rg + 16 i of the block's, key columns cg + 8 j
+  const int g = threadIdx.x / kF32Threads;   // group, warp-uniform
+  const int t = threadIdx.x % kF32Threads;
+  const int rg = t / 8, cg = t % 8;
+  float* ring = s_rings + g * kRingFloats;
+  float* p_rows = s_p + g * G::ROWS * kPadS;   // the group's score tile
+  const float scale_log2 = scale * kLog2e;
+
+  copy_rows<D, G::ROWS, G::kThreads>(s_q, q + row_base * D, q0, s);
+  copy_rows<D, G::ROWS, G::kThreads>(s_do, dout + row_base * D, q0, s);
+  if (g < nk) {
+    copy_rows<D, kF32Cols, kF32Threads>(ring, kb, g * kF32Cols, s, t);
+    copy_rows<D, kF32Cols, kF32Threads>(ring + kTileFloats, vb,
+                                        g * kF32Cols, s, t);
+  }
+  async_copy::cp_async_commit();
+  for (int r = threadIdx.x; r < G::ROWS; r += G::kThreads) {
+    const int row = q0 + r;
+    s_lse[r] = row < s ? lse[row_base + row] * kLog2e : 0.0f;
+    s_dsum[r] = row < s ? dsum[row_base + row] : 0.0f;
+  }
+  async_copy::cp_async_wait<0>();
+  __syncthreads();   // q, dO, the rows and each group's first tile in
+
+  float acc[TM][NG][VW] = {};   // dQ / scale of the thread's rows
+  for (int n = 0;; ++n) {
+    const int kt = g + n * G::GROUPS;
+    if (kt >= nk) break;   // group-uniform
+    const int k0 = kt * kF32Cols;
+    const int next = k0 + G::GROUPS * kF32Cols;   // the group's next tile
+    const float* tk = ring + (n % G::STAGES) * 2 * kTileFloats;
+    const float* tv = tk + kTileFloats;
+    if (n > 0) {
+      async_copy::cp_async_wait<0>();
+      group_sync(g);   // tile kt in; the group is done with the last
+    }
+    if constexpr (G::STAGES == 2) {
+      if (next < nk * kF32Cols) {
+        float* nx = ring + ((n + 1) % 2) * 2 * kTileFloats;
+        copy_rows<D, kF32Cols, kF32Threads>(nx, kb, next, s, t);
+        copy_rows<D, kF32Cols, kF32Threads>(nx + kTileFloats, vb, next, s,
+                                            t);
+      }
+      async_copy::cp_async_commit();
+    }
+    float sc[TM][8] = {};
+    tile_abt<D, TM, 1>(sc, s_q, tk, rg, cg);   // Q K^T
+    const bool edge = (causal && k0 + kF32Cols - 1 > q0) || k0 + kF32Cols > s;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = rg + 16 * i;
+      const float l2 = s_lse[row];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kpos = k0 + cg + 8 * j;
+        float p = exp2f(sc[i][j] * scale_log2 - l2);
+        if (edge && (kpos >= s || (causal && kpos > q0 + row))) p = 0.0f;
+        p_rows[row * kPadS + cg + 8 * j] = p;
+      }
+    }
+    float dp[TM][8] = {};
+    tile_abt<D, TM, 1>(dp, s_do, tv, rg, cg);   // dO V^T
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = rg + 16 * i;
+      const float ds = s_dsum[row];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* at = p_rows + row * kPadS + cg + 8 * j;
+        *at = *at * (dp[i][j] - ds);   // dS over P
+      }
+    }
+    __syncwarp();   // the octet's rows of dS in
+    tile_px<D, TM>(acc, p_rows, tk, rg, cg);   // dQ += dS K
+    if constexpr (G::STAGES == 1) {
+      group_sync(g);   // the group is done with the stage
+      if (next < nk * kF32Cols) {
+        copy_rows<D, kF32Cols, kF32Threads>(ring, kb, next, s, t);
+        copy_rows<D, kF32Cols, kF32Threads>(ring + kTileFloats, vb, next, s,
+                                            t);
+      }
+      async_copy::cp_async_commit();
+    }
+  }
+
+  if constexpr (G::GROUPS == 2) {
+    // group 1's partial sums join group 0's through the score tiles, free
+    // once both groups are done: dQ = (even tiles) + (odd tiles), an order
+    // that does not change from run to run
+    float* partial = s_p + (rg * D + VW * cg);
+    __syncthreads();
+    if (g == 1) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int gg = 0; gg < NG; ++gg) {
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            partial[16 * i * D + 8 * VW * gg + e] = acc[i][gg][e];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (g == 1) return;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+#pragma unroll
+      for (int gg = 0; gg < NG; ++gg) {
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          acc[i][gg][e] += partial[16 * i * D + 8 * VW * gg + e];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = q0 + rg + 16 * i;
+    if (row >= s) continue;
+    float* dst = dq + (row_base + row) * D + VW * cg;
+#pragma unroll
+    for (int gg = 0; gg < NG; ++gg) {
+      float* at = dst + 8 * VW * gg;
+      if constexpr (VW == 4) {
+        *reinterpret_cast<float4*>(at) =
+            make_float4(acc[i][gg][0] * scale, acc[i][gg][1] * scale,
+                        acc[i][gg][2] * scale, acc[i][gg][3] * scale);
+      } else {
+        *reinterpret_cast<float2*>(at) =
+            make_float2(acc[i][gg][0] * scale, acc[i][gg][1] * scale);
+      }
     }
   }
 }
@@ -1199,26 +1283,6 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-// Dynamic shared memory of the f32 dQ kernel: q, dO, k, v and dS tiles.
-template <int D>
-constexpr size_t dq_f32_bytes() {
-  return (4 * kTile * (D + 1) + kTile * kPadP) * sizeof(float);
-}
-
-// Opt the f32 dQ kernel into `bytes` of dynamic shared memory, launch it
-// on the (q tile, q-head, batch) grid, and return cudaGetLastError().
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t bytes, int s, int h, int b,
-           cudaStream_t stream, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((s + kTile - 1) / kTile, h, b);
-  kernel<<<grid, kThreads, bytes, stream>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Opt the kernel into `bytes` of dynamic shared memory, launch `threads`
 // threads a block on the (batch x q-head, tile of `rows` rows) grid, so
 // that every head's first tile is scheduled before any head's second, and
@@ -1327,13 +1391,14 @@ template <int D>
 int dq(const Problem& p, bool bf16_in, const void* dout, const float* lse,
        const float* dsum, void* dq_out, cudaStream_t stream) {
   if (!bf16_in) {
-    return launch(flash_dq_kernel<D>, dq_f32_bytes<D>(), p.s, p.h, p.b,
-                  stream, static_cast<const float*>(p.q),
-                  static_cast<const float*>(p.k),
-                  static_cast<const float*>(p.v),
-                  static_cast<const float*>(dout), lse, dsum,
-                  static_cast<float*>(dq_out), p.s, p.h, p.h / p.kh,
-                  p.causal, p.scale);
+    return launch_rows(flash_dq_kernel<D>, F32Dq<D>::kBytes,
+                       F32Dq<D>::kThreads, F32Dq<D>::ROWS, p.s, p.h, p.b,
+                       stream, static_cast<const float*>(p.q),
+                       static_cast<const float*>(p.k),
+                       static_cast<const float*>(p.v),
+                       static_cast<const float*>(dout), lse, dsum,
+                       static_cast<float*>(dq_out), p.s, p.h, p.h / p.kh,
+                       p.causal, p.scale);
   }
   CUtensorMap maps[4];
   if (!bwd_maps<D>(p, dout, kDqRows, kDqKeys, maps)) {
@@ -1384,7 +1449,7 @@ int bf16_smem(int which) {
 template <int D>
 int f32_smem(int which) {
   const size_t bytes = which == 0   ? F32Fwd<D>::kBytes
-                       : which == 1 ? dq_f32_bytes<D>()
+                       : which == 1 ? F32Dq<D>::kBytes
                                     : F32Dkv<D>::kBytes;
   return static_cast<int>(bytes);
 }

@@ -196,9 +196,15 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                    torch.zeros((100, 64), device=cuda))
 
 
+# The first five cases as before; then N2 % 4 of 1, 2 and 3 (scalar
+# stores) past one 512-column tile, N1 one below and one above MAX_ROWS
+# (64 rows a block at most; the rows a block takes follow the shape), and
+# d 8 (the gp_chol path's registers) and 32 (the generic kernel).
 @pytest.mark.parametrize("n1,n2,d,dup", [
     (1, 1, 1, 0), (37, 53, 2, 0), (80, 80, 2, 8), (255, 1031, 5, 0),
-    (64, 300, 32, 0)])
+    (64, 300, 32, 0), (63, 1025, 2, 0), (65, 1030, 8, 0), (63, 1027, 32, 0),
+    (65, 515, 2, 0), (129, 1024, 8, 4), (4096, 4096, 8, 0),
+    (512, 50000, 2, 0)])
 def test_gp_kernel_bitwise(cuda, n1, n2, d, dup):
     """Distances, Matérn-5/2 and RBF: bitwise equal to the plain versions
     (same order of operations, no FMA, IEEE division/sqrt/exp)."""
@@ -212,6 +218,29 @@ def test_gp_kernel_bitwise(cuda, n1, n2, d, dup):
         expect = ref.gp_matrix_ref(x1, x2, kind=kind, lengthscale=0.2,
                                    variance=1.5)
         assert torch.equal(got, expect), kind
+
+
+@pytest.mark.parametrize("n2,d", [(515, 2), (1024, 8), (300, 5)])
+def test_gp_kernel_keeps_nan_rows(cuda, n2, d):
+    """A NaN feature in one row of x1 and one of x2: their distances are
+    NaN (and so are RBF's covariances; Matérn's safe square root maps them
+    to the variance, as the plain version's does), and every output equals
+    the plain version's bitwise."""
+    g = _gen(cuda, n2 + d)
+    x1 = torch.rand((70, d), generator=g, device=cuda)
+    x2 = torch.rand((n2, d), generator=g, device=cuda)
+    x1[5, d - 1] = float("nan")
+    x2[n2 - 2, 0] = float("nan")
+    for kind in ("sqdist", "matern52", "rbf"):
+        if kind == "sqdist":
+            got, want = gp.gp_sqdist(x1, x2), ref.gp_sqdist_ref(x1, x2)
+        else:
+            got = gp.gp_matrix(x1, x2, kind=kind, lengthscale=0.3)
+            want = ref.gp_matrix_ref(x1, x2, kind=kind, lengthscale=0.3)
+        if kind != "matern52":
+            assert got[5].isnan().all() and got[:, n2 - 2].isnan().all()
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
 
 
 def _lower(n, g, dev):
@@ -537,7 +566,8 @@ def _attention_inputs(dev, b, h, kh, s, d, dtype, seed):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [8, 100, 192, 320, 512, 1, 127, 129, 384])
+@pytest.mark.parametrize("s", [8, 100, 192, 320, 512, 1, 127, 129, 384,
+                               63, 65])
 @pytest.mark.parametrize("d", [16, 64, 128])
 def test_flash_kernels_match_plain(cuda, d, s, dtype, causal):
     """B8, B9's forward, dQ and dK/dV against their plain versions; 6 q
@@ -545,8 +575,9 @@ def test_flash_kernels_match_plain(cuda, d, s, dtype, causal):
     S 1, 8 and 100 are ragged to every tile; 192 and 320 are multiples of
     64 (the f32 tiles and dK/dV key blocks, the bf16 dK/dV kernel's q
     tiles) but not of 128 (the f32 forward's q rows at D <= 64, the bf16
-    kernels' blocks); 127 and 129 fall one below and one above 128, and
-    384 is a multiple of 128."""
+    kernels' blocks); 127 and 129 fall one below and one above 128 (the
+    f32 dQ block's rows at D <= 64), 63 and 65 one below and one above 64
+    (its rows at D 128), and 384 is a multiple of 128."""
     _check_flash_kernels(cuda, 2, 6, 2, s, d, dtype, causal)
 
 

@@ -353,6 +353,121 @@ def test_gp_kernel_fn_gradient_is_finite_at_zero_distance():
     assert torch.equal(torch.diagonal(k), torch.ones(3))
 
 
+@pytest.mark.parametrize("n1,n2,sms,per_sm", [
+    (1, 1, 132, 16), (3, 3, 132, 16), (24, 24, 132, 12), (512, 8, 132, 16),
+    (512, 50000, 132, 16), (512, 50000, 132, 12), (4096, 4096, 132, 9),
+    (63, 1025, 4, 2), (65, 1030, 4, 2), (129, 515, 1, 1), (1000, 513, 2, 3),
+    (7, 2049, 132, 16)])
+def test_gp_launch_config_covers_each_output_once(n1, n2, sms, per_sm):
+    """Every (row, column) of the output falls in exactly one block: column
+    tiles of TILE_COLS and row groups of ``rows`` rows (at most MAX_ROWS,
+    the last one possibly shorter, none empty) cover the output once; the
+    grid within CUDA's limits."""
+    cfg = gp.launch_config(n1, n2, sms, per_sm)
+    assert 1 <= cfg.rows <= gp.MAX_ROWS
+    assert 1 <= cfg.grid[0] <= 2**31 - 1 and 1 <= cfg.grid[1] <= 65535
+    covered = np.zeros((n1, n2), int)
+    for by in range(cfg.row_groups):
+        assert by * cfg.rows < n1                      # no empty group
+        for bx in range(cfg.col_tiles):
+            assert bx * gp.TILE_COLS < n2              # no empty tile
+            covered[by * cfg.rows:(by + 1) * cfg.rows,
+                    bx * gp.TILE_COLS:(bx + 1) * gp.TILE_COLS] += 1
+    assert (covered == 1).all()
+
+
+def test_gp_launch_config_fills_the_card_in_whole_waves():
+    """The rows a block takes put the archive-scale assembly in one wave
+    of the card's resident blocks, the gp_chol path's too, and shorten
+    the rows where the card holds fewer blocks an SM."""
+    lc = gp.launch_config
+    full = lc(512, 50000, 132, 16)
+    assert full.col_tiles == 98 and full.col_tiles * full.row_groups <= 2112
+    assert full.rows == 25
+    assert lc(512, 50000, 132, 12).rows == 32
+    chol = lc(4096, 4096, 132, 9)
+    assert chol.col_tiles * chol.row_groups <= 132 * 9 and chol.rows == 28
+    assert lc(0, 5, 132, 16).row_groups == 0
+
+
+_GP_SASS = """
+\t\tFunction : {name}
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0030*/                   LDS.128 R4, [R2] ;
+        /*0040*/                   MUFU.RSQ R5, R4 ;
+        /*0050*/              @!P1 BRA 0x70 ;
+        /*0060*/                   CALL.REL.NOINC 0x100 ;
+        /*0070*/                   MUFU.EX2 R6, R5 ;
+        /*0080*/                   STG.E.EF.128 desc[UR4][R8.64], R4 ;
+        /*0090*/              @P0  BRA 0x30 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   BRA 0xb0 ;
+        /*0100*/                   MUFU.RCP R7, R6 ;
+        /*0110*/                   RET.REL.NODEC R2 0x0 ;
+"""
+
+
+def test_gp_row_loop_instructions_counts_the_back_edge_span():
+    """The row loop is the span of the widest backward branch, both ends
+    included; forward branches, the trailing self-branch and code past the
+    loop do not count."""
+    name = "_ZN12_GLOBAL__N_19gp_kernelILi2ELi1ELb1EEEvPKfS2_iiiiffPf"
+    text = _GP_SASS.format(name=name)
+    assert gp.row_loop_instructions(text) == {name: 7}
+    assert gp.kernel_name(name) == "gp_kernel<2,matern52,vec4>"
+    assert gp.kernel_name_for(2, "matern52", 4096) == \
+        "gp_kernel<2,matern52,vec4>"
+    assert gp.kernel_name_for(8, "rbf", 4097) == "gp_kernel<8,rbf,scalar>"
+    assert gp.kernel_name_for(5, "sqdist", 4096) == \
+        "gp_kernel<any,sqdist,scalar>"
+
+
+def _fake_gp_build(drop=None, extra=()):
+    """A stand-in for ``build`` whose gp library holds the 15 kernels of
+    ``csrc/gp.cu`` (less ``drop``, plus the mangled names ``extra``), each
+    with the row loop of ``_GP_SASS``."""
+    import types
+    kinds = {"sqdist": 0, "matern52": 1, "rbf": 2}
+    names = []
+    for name in sorted(gp.KERNEL_NAMES - {drop}):
+        d, kind, store = name[len("gp_kernel<"):-1].split(",")
+        names.append(f"_ZN12_GLOBAL__N_19gp_kernelILi"
+                     f"{0 if d == 'any' else d}ELi{kinds[kind]}ELb"
+                     f"{int(store == 'vec4')}EEEvPKfS2_iiiiffPf")
+    names += list(extra)
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used {30 + i} registers, used 1 barriers, "
+        f"{512 + i} bytes smem, 400 bytes cmem[0]"
+        for i, name in enumerate(names))
+    sass = "".join(_GP_SASS.format(name=name) for name in names)
+    return types.SimpleNamespace(
+        build_log=lambda name: log, sass=lambda name: sass,
+        kernel_resources=build.kernel_resources,
+        sass_counts=build.sass_counts)
+
+
+def test_gp_build_report_names_every_kernel():
+    """chip_smoke's build line for gp.cu: each kernel with registers,
+    spills, static shared memory, MUFU count and its row loop; a missing
+    or unknown kernel fails the phase."""
+    smoke = _chip_smoke()
+    rows = smoke.gp_build_report(_fake_gp_build())
+    assert set(rows) == gp.KERNEL_NAMES
+    row = rows["gp_kernel<2,matern52,vec4>"]
+    assert row["spill_stores"] == 0 and row["MUFU"] == 3
+    assert row["row_loop_instructions"] == 7 and row["per_output"] == 1.75
+    with pytest.raises(RuntimeError, match="expected"):
+        smoke.gp_build_report(_fake_gp_build(drop="gp_kernel<8,rbf,vec4>"))
+    with pytest.raises(RuntimeError, match="unknown kernel"):
+        smoke.gp_build_report(_fake_gp_build(
+            extra=["_ZN12_GLOBAL__N_16gp_oldEPKf"]))
+
+
 # ---------------------------------------------------------------------------
 # blocked triangular solve (B7)
 # ---------------------------------------------------------------------------
@@ -605,10 +720,12 @@ def test_sass_counts_counts_mnemonics_per_function():
             {"HGMMA": 0, "HMMA": 0}}
 
 
-def _fake_flash_build(tensor_core_ops):
+def _fake_flash_build(tensor_core_ops, dq_spills=0):
     """A stand-in for ``build`` whose flash library has the 24 kernels of
     ``csrc/flash.cu`` (names as nvcc mangles them in the file's anonymous
-    namespace), the bf16 ones with ``tensor_core_ops`` HGMMA each."""
+    namespace), the bf16 ones with ``tensor_core_ops`` HGMMA each; with
+    ``dq_spills``, ptxas reports that many spilled bytes for the f32 dQ
+    kernel at D 128."""
     import types
     funcs = []
     for kernel in ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
@@ -626,6 +743,11 @@ def _fake_flash_build(tensor_core_ops):
     log = "\n".join(
         f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
         f"ptxas info    : Used 168 registers" for name, _ in funcs)
+    if dq_spills:
+        log += ("\nptxas info    : Function properties for _ZN18flash_cu_"
+                "5326155215flash_dq_kernelILi128EEEv\n    0 bytes stack "
+                f"frame, {dq_spills} bytes spill stores, {dq_spills} bytes "
+                "spill loads")
 
     def smem_bytes(which, d):
         return 1000 * which + d
@@ -660,6 +782,16 @@ def test_flash_build_report_requires_tensor_cores_in_bf16_kernels():
     assert rows["flash_fwd_kernel<64>"]["smem_bytes"] == 100_064
     with pytest.raises(RuntimeError, match="no tensor-core instruction"):
         smoke.flash_build_report(_fake_flash_build(0))
+
+
+def test_flash_build_report_refuses_a_spilling_dq_kernel():
+    """The f32 dQ kernel must not spill at any head dim: 16 spilled bytes
+    at D 128 fail the build line."""
+    smoke = _chip_smoke()
+    rows = smoke.flash_build_report(_fake_flash_build(2))
+    assert rows["flash_dq_kernel<128>"]["registers"] == 168
+    with pytest.raises(RuntimeError, match="flash_dq_kernel<128> spills 16"):
+        smoke.flash_build_report(_fake_flash_build(2, dq_spills=16))
 
 
 def _chip_smoke():

@@ -7,6 +7,7 @@ read against its parent on the same card within one call.
     python3 tools/compare_trees.py PARENT_DIR CHANGED_DIR [--chunk]
         [--calibrate]
     python3 tools/compare_trees.py PARENT_DIR CHANGED_DIR --flash
+    python3 tools/compare_trees.py PARENT_DIR CHANGED_DIR --gp
 
 Each run prints one JSON line: B1 at (640, 72, 72) and (20480, 72, 72),
 B7 forward at L 512, B (512, 50,176) and backward at B (512, 2048), B2 at
@@ -24,8 +25,12 @@ clock. With --flash, instead of all of that, the flash-attention kernels
 at smollm-135m's attention (B 4, S 4096, 9 q heads on 3 kv heads, D 64,
 causal): the f32 forward (B8), dQ and dK/dV, and the bf16 forward, each
 checked against its plain version (f32 out 2e-5, lse 1e-5, gradients
-2e-4; bf16 2e-2) and timed as above. The card's name and power limit come
-last.
+2e-4; bf16 2e-2) and timed as above. With --gp, instead, the GP
+covariance assembly (B4): gp_sqdist and gp_matrix's Matérn-5/2 and RBF
+epilogues at the archive-scale inducing fit's (512, 50,000, d 2) and the
+gp_chol path's (4096, 4096, d 8), and gp_sqdist at the bandit's fits (3,
+3), (6, 6) and (9, 9) in 2 dims, each held bitwise to its plain version
+and timed as above. The card's name and power limit come last.
 """
 from __future__ import annotations
 
@@ -118,6 +123,44 @@ def flash_worker() -> dict:
     return out
 
 
+def gp_worker() -> dict:
+    """Check and time the GP assembly kernel of the tree on sys.path."""
+    import time
+
+    import torch
+
+    from repro_torch.kernels import build, gp, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.monotonic()
+    build.build(["gp"])
+    out = {"build_s": time.monotonic() - t0}
+    for n1, n2, d, kinds in ((512, 50000, 2, ("sqdist", "matern52", "rbf")),
+                             (4096, 4096, 8, ("sqdist", "matern52", "rbf")),
+                             (3, 3, 2, ("sqdist",)), (6, 6, 2, ("sqdist",)),
+                             (9, 9, 2, ("sqdist",))):
+        x1 = torch.rand((n1, d), generator=gen, device=dev)
+        x2 = x1 if n1 == n2 else torch.rand((n2, d), generator=gen,
+                                             device=dev)
+        for kind in kinds:
+            if kind == "sqdist":
+                def run():
+                    return gp.gp_sqdist(x1, x2)
+                want = ref.gp_sqdist_ref(x1, x2)
+            else:
+                def run(kind=kind):
+                    return gp.gp_matrix(x1, x2, kind=kind, lengthscale=0.2,
+                                        variance=1.0)
+                want = ref.gp_matrix_ref(x1, x2, kind=kind, lengthscale=0.2,
+                                         variance=1.0)
+            if not torch.equal(run(), want):
+                raise RuntimeError(f"gp {kind} not bitwise at "
+                                   f"({n1}, {n2}, {d})")
+            del want
+            out[f"{kind}_{n1}x{n2}x{d}_ms"] = events_ms(torch, run)
+    return out
+
+
 def worker(chunk: bool, calibrate: bool = False) -> dict:
     """Measure the kernels (and the chunk) of the tree on sys.path."""
     import time
@@ -205,6 +248,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--worker"]:
         sys.path.insert(0, str(Path(sys.argv[2]) / "src"))
         row = (flash_worker() if "--flash" in sys.argv else
+               gp_worker() if "--gp" in sys.argv else
                worker("--chunk" in sys.argv, "--calibrate" in sys.argv))
         print(json.dumps(row), flush=True)
         return 0
@@ -212,7 +256,7 @@ def main() -> int:
     if len(args) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    extra = [f for f in ("--chunk", "--calibrate", "--flash")
+    extra = [f for f in ("--chunk", "--calibrate", "--flash", "--gp")
              if f in sys.argv]
     trees = {"A": Path(args[0]).resolve(), "B": Path(args[1]).resolve()}
     for label in ("A", "B", "B", "A"):

@@ -1,5 +1,5 @@
 """Build variants of ``src/repro_torch/csrc/flash.cu`` side by side and
-time their f32 forward and dK/dV kernels in turns on one CUDA card.
+time their f32 forward, dQ and dK/dV kernels in turns on one CUDA card.
 
     python3 tools/flash_variants.py VARIANTS.json
 
@@ -12,8 +12,8 @@ compiled with ``build.NVCC_FLAGS`` by its own nvcc, all at once, into
 loaded with ctypes. Printed, one JSON line each: every variant's ptxas
 registers and spill bytes of ``flash_fwd_kernel``, ``flash_dq_kernel`` and
 ``flash_dkv_kernel`` at each head dim; the largest difference of its f32
-forward (out, lse) and dK/dV from ``base``'s at (4, 4096, 9 q heads on 3
-kv heads, 64), causal; and the median, min and max ms of each over 8
+forward (out, lse), dQ and dK/dV from ``base``'s at (4, 4096, 9 q heads on
+3 kv heads, 64), causal; and the median, min and max ms of each over 8
 rounds taken in turns (the variants in order, then reversed), each sample
 3 back-to-back calls between CUDA events queued behind a spinning card.
 The card's name and power limit come last.
@@ -81,6 +81,7 @@ def build_variants(spec: dict, out_dir: Path) -> dict:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         tail = [i32] * 7 + [ctypes.c_float, ptr]
         lib.flash_fwd_launch.argtypes = [ptr] * 5 + tail
+        lib.flash_dq_launch.argtypes = [ptr] * 7 + tail
         lib.flash_dkv_launch.argtypes = [ptr] * 8 + tail
         libs[name] = lib
     return libs
@@ -111,6 +112,13 @@ def main() -> int:
         if err:
             raise RuntimeError(f"flash_fwd_launch: error {err}")
 
+    def dq(lib, lse, dsum, dq_out):
+        err = lib.flash_dq_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  do.data_ptr(), lse.data_ptr(),
+                                  dsum.data_ptr(), dq_out.data_ptr(), *args)
+        if err:
+            raise RuntimeError(f"flash_dq_launch: error {err}")
+
     def dkv(lib, lse, dsum, dk, dv):
         err = lib.flash_dkv_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    do.data_ptr(), lse.data_ptr(),
@@ -127,9 +135,10 @@ def main() -> int:
     base_o, base_lse = outs["base"]
     dsum = (do * base_o).sum(-1)
     for name, lib in libs.items():
-        dk, dv = torch.empty_like(q), torch.empty_like(q)
+        dq_out, dk, dv = (torch.empty_like(q) for _ in range(3))
+        dq(lib, base_lse, dsum, dq_out)
         dkv(lib, base_lse, dsum, dk, dv)
-        outs[name] += [dk, dv]
+        outs[name] += [dq_out, dk, dv]
     for name, got in outs.items():
         print(json.dumps({"variant": name, "max_abs_diff_from_base": [
             (g - w).abs().max().item()
@@ -147,11 +156,13 @@ def main() -> int:
         return start.elapsed_time(end) / n
 
     names = list(libs)
-    times = {(n, w): [] for n in names for w in ("fwd", "dkv")}
+    times = {(n, w): [] for n in names for w in ("fwd", "dq", "dkv")}
     for r in range(8):
         for n in (names if r % 2 == 0 else names[::-1]):
-            o, lse, dk, dv = outs[n]
+            o, lse, dq_out, dk, dv = outs[n]
             times[n, "fwd"].append(sample(lambda: fwd(libs[n], o, lse)))
+            times[n, "dq"].append(sample(
+                lambda: dq(libs[n], base_lse, dsum, dq_out)))
             times[n, "dkv"].append(sample(
                 lambda: dkv(libs[n], base_lse, dsum, dk, dv)))
     for (n, w), t in times.items():
